@@ -5,41 +5,96 @@
 // sequenced op tail folded into its segment pool, bit for bit the
 // semantics of mergetree_kernel._apply_op / _split_at / _visible_len.
 //
-// Design.  One thread block per document.  The document's whole state
-// (12 int32 slot planes + K props planes, S slots each) lives in shared
-// memory for the entire tail, so device memory sees the state once in,
-// once out, and every op row once.  The block's threads own contiguous
-// runs of the S slots.  Each op step:
-//   - boundary splits and the insert find their slot with block-wide
-//     reductions (warp shuffles, then one shared-memory pass);
-//   - the visible-length prefix sum is a block scan (warp shuffles plus
-//     one shared-memory pass across warps);
-//   - a shift right by one is read -> write into a second copy of the
-//     state -> __syncthreads() -> swap (double buffering: one barrier per
-//     shift, no cross-thread hazard);
-//   - remove / annotate / obliterate write each slot in place (no slot
-//     reads another), and the overflow flag is one __syncthreads_or;
-//   - NOOP rows (kind 0, the pads of shorter documents) are skipped.
-// Op rows are staged into shared memory a tile at a time with coalesced
-// loads.  The TPU kernel's workarounds (8-document sublane batches,
-// 128-lane padding, roll+select gathers, masked one-hot reads, the
-// Hillis-Steele ladder) have no counterpart here.
+// Design.  One warp folds one document; a block holds W such warps, W
+// derived at launch from the shared memory a document needs (the W of
+// 1, 2, 4, 8 that keeps the most documents resident per SM, by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, found once per device, S
+// and K and kept for later launches).  The warp keeps its document's
+// state (12 int32 slot planes [S] + props [S][K]), the view's visible
+// lengths and prefix [S] each, and a tile of kOpTile op rows in
+// its own slice of shared memory, so device memory sees the state once in
+// and once out and every op row once.  What replaced each limit of the
+// earlier block-per-document design:
+//   1. No block barriers.  Warps never wait for one another: warp
+//      shuffles scan the view (a running carry across 32-slot chunks),
+//      __ballot_sync + __ffs finds the "first slot where ...", and
+//      __any_sync folds the overflow flag.  A warp past the last document
+//      exits at once; no block barrier exists anywhere in the kernel.
+//   2. Live slots only.  Every pass runs over [0, n) at the row's n (the
+//      view stops early once the rest cannot matter), and a row's move
+//      touches only the slots from its first split, insert or stamped
+//      index on.  Dead slots [n, S) are never touched: the packer and
+//      cold_start fill each plane's dead region with one value, and the
+//      plain fold's shifts carry only that fill into dead slots, so the
+//      region left in place equals the plain fold's.
+//   3. One view per op row.  See "One view per row" below: the view taken
+//      before the splits locates both splits, the insert's index and every
+//      slot's view after the splits, and one combined move writes each
+//      slot once to its final place, with the split halves, the new slot
+//      and the range stamps.
+//   4. One copy of the state.  The move runs top down in 32-slot chunks:
+//      read the chunk, __syncwarp, write at s + delta with delta >= 0, so
+//      no unread slot is overwritten.  13 x 192 x 4 = 9,984 B of state at
+//      the pinned shape (14,096 B a document with the view and op tile);
+//      S reaches 3,072 for K = 1.
+//   5. Bulk copies.  Lanes of the warp issue cp.async.bulk copies of the
+//      document's contiguous rows (12 planes, props, 9 op fields, pvals)
+//      global -> shared, completing on the warp's mbarrier, and
+//      shared -> global at the end.  Every row is a multiple of 16 bytes
+//      (the wrapper refuses shapes whose rows are not).  One stage: a
+//      document's load is not overlapped with another's fold by the warp
+//      itself; the other warps resident on the SM fill that time.  Measured
+//      at the pinned batch on an H100 (700 W) by tools/torch_fold_variants.py:
+//      the copies alone take 0.095 ms of the kernel's 1.11 ms, and reserving
+//      a second stage's shared memory halves the documents per SM (16 -> 8)
+//      and takes the kernel to 1.84 ms, so a second stage does not pay.
+// Tensor cores do not apply: the fold is integer branches, scans and
+// moves, with no product in it.
 //
-// Bound.  Device memory traffic is state in + state out + ops, about
+// Bound.  Device memory traffic is state in + state out + ops once, about
 // 244 MB at the pinned workload (D = 10,240, S = 192, T = 96, K = 1):
-// ~73 us at 3.35 TB/s.  What holds this design back is the chain of
-// dependent barriers and the work on dead and unmoved slots: T steps per
-// block, each of ~8 barrier-separated phases over all S slots, where the
-// op needs only the live ones.  A block takes 24.6 KB of shared memory at
-// S = 192 (smem_words), which would let 9 blocks share an SM, but
-// __launch_bounds__(1024) caps registers at 64 a thread, so 192-thread
-// blocks fit 5 per SM by registers (counted, not measured: occupancy has
-// not been profiled on the card).
+// ~73 us at 3.35 TB/s; the integer work those inputs need is ~1.5 G
+// operations, ~90 us at the int32 rate.  What holds this design back is
+// the chain each warp runs: its document's 96 dependent rows of
+// shared-memory loads, shuffles and ballots, hidden only by the other
+// documents resident on the SM.  At the pinned shape a document takes
+// 14,096 B of shared memory, 4 documents to a block, 16 documents per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, measured by
+// chip_smoke.py; 80 registers a thread allow 25).  Measured there on an
+// H100 (700 W): 1.11 ms, 12x the bound; of a warp's cycles the view takes
+// 37%, the moves 47%, the insert's neighbour search 14%, the bulk copies 3%.
 // A document whose state does not fit the 227 KB a block can address is
 // refused by the wrapper (ValueError naming S and K).
+//
+// One view per row.  Take v (visible length) and cum (its exclusive
+// prefix) once, on the row's state before its splits.  A split changes
+// no slot's visibility (both halves keep the stamps), so:
+//   - split a is at ia, the one live slot with cum < a < cum + v (visible
+//     slots' open intervals are disjoint), at offset a - cum[ia];
+//   - split b (range rows) is at ib, found the same way.  When ib == ia,
+//     b falls in the same segment: it is cut at b too (in the right half
+//     when b > a), unless b == a, which is then a boundary of the halves;
+//     otherwise it lies at its own index, + 1 when ia < ib;
+//   - the insert's tie-break slot (the first live slot with cum >= a after
+//     the split) is ja, the first live slot with cum >= a before it, else
+//     n: when split a happened, ja == ia + 1 and the right half sits
+//     there with cum a.  The new slot lands at final index ja;
+//   - each slot s keeps cum[s] and v[s] after the splits; a split slot's
+//     pieces span [cum, cut), [cut, ...), [..., cum + v), each visible
+//     with its own length.  covered / obl_zero of the range tail are read
+//     per piece from those;
+//   - piece k of slot s lands at p = s + (cuts in slots before s) + k,
+//     plus one when an insert's new slot sits at or below p (p >= ja).
+// Slots before the first split, insert or stamped index (min of ia, ib,
+// ja; range rows stamp only from ja on) do not change.  A range row with
+// no split moves nothing and stamps only the slots whose cum < max(a, b),
+// which is where the view stops.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -56,8 +111,9 @@ enum OpField {
 };
 enum Kind { K_INSERT = 1, K_REMOVE = 2, K_ANNOTATE = 3, K_OBLITERATE = 4 };
 
-constexpr int kOpTile = 64;          // op rows staged per tile
-constexpr int kRed = 2 * 64;         // two alternating 64-word buffers
+constexpr int kMaxWarps = 8;     // documents per block, at most
+constexpr int kOpTile = 64;      // op rows staged per bulk load
+constexpr int kBarWords = 4;     // the warp's mbarrier, padded to 16 bytes
 constexpr unsigned kFull = 0xffffffffu;
 
 struct FoldArgs {
@@ -74,367 +130,511 @@ struct FoldArgs {
   int D, S, T, K;
 };
 
-__host__ __device__ inline int n_threads_for(int S) {
-  int t = (S + 31) / 32 * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
+// int32 words of one document's shared memory: mbarrier, 12 planes +
+// props, v and cum, one op tile (9 fields + pvals).  Every part is a
+// multiple of 4 words when S is, so every row starts 16-byte aligned.
+__host__ __device__ inline size_t doc_words(int S, int K) {
+  return kBarWords + (size_t)(N_FIXED + K) * S + 2 * (size_t)S
+      + (size_t)(N_OPF + K) * kOpTile;
 }
 
-__host__ __device__ inline size_t smem_words(int S, int K) {
-  const int P = N_FIXED + K;
-  return 2 * (size_t)P * S + 2 * (size_t)S
-      + (size_t)(N_OPF + K) * kOpTile + kRed;
+// -- Hopper bulk copies and mbarriers (PTX) ---------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Block-wide collectives.  Each writes one of two alternating scratch
-// buffers, synchronises once, then reads: a buffer is rewritten only two
-// collectives later, after every thread passed the barrier in between.
-struct Block {
-  int tid, lane, warp, nwarps;
-  int32_t* red;
-  int phase;
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  __device__ int32_t* next_buf() {
-    int32_t* b = red + (phase & 1) * 64;
-    ++phase;
-    return b;
-  }
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
 
-  // Exclusive prefix sum of x over threads in tid order.
-  __device__ int scan_excl(int x) {
-    int inc = x;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(kFull, inc, o);
-      if (lane >= o) inc += y;
-    }
-    int32_t* buf = next_buf();
-    if (lane == 31) buf[warp] = inc;
-    __syncthreads();
-    int pre = 0;
-    for (int w = 0; w < warp; ++w) pre += buf[w];
-    return pre + inc - x;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   }
+}
 
-  __device__ int min_all(int x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
-    int32_t* buf = next_buf();
-    if (lane == 0) buf[warp] = x;
-    __syncthreads();
-    int r = buf[0];
-    for (int w = 1; w < nwarps; ++w) r = min(r, buf[w]);
-    return r;
-  }
+// Order this thread's generic-proxy shared-memory accesses before the
+// bulk copies (async proxy) that follow.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-  // min of mn and max of mx over threads, in one barrier.
-  __device__ void minmax_all(int& mn, int& mx) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      mn = min(mn, __shfl_xor_sync(kFull, mn, o));
-      mx = max(mx, __shfl_xor_sync(kFull, mx, o));
-    }
-    int32_t* buf = next_buf();
-    if (lane == 0) { buf[warp] = mn; buf[32 + warp] = mx; }
-    __syncthreads();
-    mn = buf[0];
-    mx = buf[32];
-    for (int w = 1; w < nwarps; ++w) {
-      mn = min(mn, buf[w]);
-      mx = max(mx, buf[32 + w]);
-    }
-  }
-};
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_addr(src)),
+                  "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// -- one document, one warp -------------------------------------------------
 
 struct Doc {
-  int32_t* cur;   // [P][S] current state
-  int32_t* nxt;   // [P][S] shift target
-  int32_t* vbuf;  // [S] visible length in the op's view
-  int32_t* cbuf;  // [S] exclusive prefix of vbuf
-  int S, P, s0, s1;
-  int n;
+  int32_t* st;     // [N_FIXED][S] slot planes
+  int32_t* props;  // [S][K]
+  int32_t* vbuf;   // [S] visible length in the row's view
+  int32_t* cbuf;   // [S] exclusive prefix of vbuf
+  int32_t* opb;    // [N_OPF][kOpTile], then pvals [kOpTile][K]
+  int S, K, lane;
 
-  __device__ int32_t& at(int32_t* buf, int p, int s) const {
-    return buf[(size_t)p * S + s];
-  }
+  __device__ int32_t& at(int p, int s) const { return st[p * S + s]; }
 
   __device__ int visible(int s, int ref, int client) const {
-    if (s >= n) return 0;
-    const bool ins_vis = at(cur, INS_SEQ, s) <= ref
-        || at(cur, INS_CLIENT, s) == client;
-    const int rem = at(cur, REM_SEQ, s);
+    const bool ins_vis = at(INS_SEQ, s) <= ref || at(INS_CLIENT, s) == client;
+    const int rem = at(REM_SEQ, s);
     const bool removed = rem != kNotRemoved;
     // An obliterate stamp's author is involved in the removal even when
     // another client's remove won it (merge_tree._removed_in_view).
-    const bool rem_vis = rem <= ref
-        || at(cur, REM_CLIENT, s) == client
-        || at(cur, REM2_CLIENT, s) == client
-        || (removed && (at(cur, OB1_CLIENT, s) == client
-                        || at(cur, OB2_CLIENT, s) == client));
-    return (ins_vis && !rem_vis) ? at(cur, TLEN, s) : 0;
+    const bool rem_vis = rem <= ref || at(REM_CLIENT, s) == client
+        || at(REM2_CLIENT, s) == client
+        || (removed && (at(OB1_CLIENT, s) == client
+                        || at(OB2_CLIENT, s) == client));
+    return (ins_vis && !rem_vis) ? at(TLEN, s) : 0;
   }
 
-  // vbuf/cbuf for the op's view over this thread's slots.
-  __device__ void view(Block& blk, int ref, int client) {
-    int local = 0;
-    for (int s = s0; s < s1; ++s) {
-      const int v = visible(s, ref, client);
-      vbuf[s] = v;
-      local += v;
-    }
-    int run = blk.scan_excl(local);
-    for (int s = s0; s < s1; ++s) {
-      cbuf[s] = run;
-      run += vbuf[s];
-    }
-  }
-
+  // Zamboni parity: a tombstone expired at the op's stamped MSN.
   __device__ bool expired(int s, int msn) const {
-    const int ob1 = at(cur, OB1_SEQ, s), ob2 = at(cur, OB2_SEQ, s);
-    const int rem = at(cur, REM_SEQ, s);
+    const int ob1 = at(OB1_SEQ, s), ob2 = at(OB2_SEQ, s);
+    const int rem = at(REM_SEQ, s);
     const bool ob1_live = ob1 != kNotRemoved && ob1 > msn;
     const bool ob2_live = ob2 != kNotRemoved && ob2 > msn;
-    return rem != kNotRemoved && rem <= msn && at(cur, INS_SEQ, s) <= msn
+    return rem != kNotRemoved && rem <= msn && at(INS_SEQ, s) <= msn
         && !ob1_live && !ob2_live;
-  }
-
-  __device__ void swap_after_shift() {
-    __syncthreads();
-    int32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-    ++n;
-  }
-
-  // Split the segment pos falls strictly inside of, in the op's view.
-  __device__ void split_at(Block& blk, int pos, int ref, int client) {
-    view(blk, ref, client);
-    int first = S;
-    for (int s = s0; s < s1; ++s) {
-      const int c = cbuf[s];
-      if (c < pos && pos < c + vbuf[s]) first = min(first, s);
-    }
-    first = blk.min_all(first);
-    if (first >= S) return;  // on a boundary: nothing to split
-    const int off = pos - cbuf[first];
-    const int left_len = at(cur, TLEN, first);
-    const int left_start = at(cur, TSTART, first);
-    for (int s = s0; s < s1; ++s) {
-      const int src = s <= first ? s : s - 1;
-      for (int p = 0; p < P; ++p) at(nxt, p, s) = at(cur, p, src);
-      if (s == first) at(nxt, TLEN, s) = off;
-      if (s == first + 1) {
-        at(nxt, TLEN, s) = left_len - off;
-        at(nxt, TSTART, s) = left_start + off;
-      }
-    }
-    swap_after_shift();
   }
 };
 
-__global__ void __launch_bounds__(1024) mergetree_fold_kernel(FoldArgs args) {
-  extern __shared__ int32_t smem[];
+// What the row's one view found (warp-uniform).
+struct View {
+  int ia;    // slot split at a, or -1
+  int ib;    // slot split at b (range rows), or -1
+  int ja;    // first live slot with cum >= a, else n
+  int vend;  // v / cum are valid for slots [0, vend)
+};
+
+// v / cum over the live slots, 32 at a time with a running carry, and the
+// searches on them.  Stops after the chunk where cum reaches stop_at: no
+// later slot can be split, be the tie-break slot or be stamped.
+__device__ View take_view(const Doc& doc, int n, int ref, int client, int a,
+                          int b, bool is_ins) {
+  const int lane = doc.lane;
+  const int stop_at = is_ins ? a : max(a, b);
+  View w{-1, -1, -1, 0};
+  int carry = 0;
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int s = c0 + lane;
+    const bool in = s < n;
+    const int v = in ? doc.visible(s, ref, client) : 0;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int cum = carry + incl - v;
+    carry += __shfl_sync(kFull, incl, 31);
+    if (in) {
+      doc.vbuf[s] = v;
+      doc.cbuf[s] = cum;
+    }
+    const unsigned in_a = __ballot_sync(kFull, in && cum < a && a < cum + v);
+    if (w.ia < 0 && in_a) w.ia = c0 + __ffs(in_a) - 1;
+    if (!is_ins) {
+      const unsigned in_b =
+          __ballot_sync(kFull, in && cum < b && b < cum + v);
+      if (w.ib < 0 && in_b) w.ib = c0 + __ffs(in_b) - 1;
+    }
+    const unsigned ge_a = __ballot_sync(kFull, in && cum >= a);
+    if (w.ja < 0 && ge_a) w.ja = c0 + __ffs(ge_a) - 1;
+    w.vend = min(c0 + 32, n);
+    if (__any_sync(kFull, in && cum >= stop_at)) break;
+  }
+  if (w.ja < 0) w.ja = n;
+  return w;
+}
+
+// Obliterate-on-arrival for an insert: the new segment dies iff its
+// nearest non-expired neighbours share a stamp the inserter had not seen
+// from another client.  In pre-split indices the left neighbour is the
+// last present slot before ja; the right one the first present slot from
+// ia (the right half of a split shares ia's stamps) or from ja.
+__device__ void arrival_kill(const Doc& doc, int n, const View& w, int msn,
+                             int ref, int client, int& kill_seq,
+                             int& kill_client) {
+  const int lane = doc.lane;
+  int left = -1, right = -1;
+  for (int top = w.ja; top > 0 && left < 0; top -= 32) {
+    const int s = top - 32 + lane;
+    const unsigned m = __ballot_sync(kFull, s >= 0 && !doc.expired(s, msn));
+    if (m) left = top - 32 + 31 - __clz((int)m);
+  }
+  for (int c0 = w.ia >= 0 ? w.ia : w.ja; c0 < n && right < 0; c0 += 32) {
+    const int s = c0 + lane;
+    const unsigned m = __ballot_sync(kFull, s < n && !doc.expired(s, msn));
+    if (m) right = c0 + __ffs(m) - 1;
+  }
+  const bool has_l = left >= 0, has_r = right >= 0;
+  const int l1s = has_l ? doc.at(OB1_SEQ, left) : kNotRemoved;
+  const int l2s = has_l ? doc.at(OB2_SEQ, left) : kNotRemoved;
+  const int l1c = has_l ? doc.at(OB1_CLIENT, left) : kNotRemoved;
+  const int l2c = has_l ? doc.at(OB2_CLIENT, left) : kNotRemoved;
+  const int r1s = has_r ? doc.at(OB1_SEQ, right) : kNotRemoved;
+  const int r2s = has_r ? doc.at(OB2_SEQ, right) : kNotRemoved;
+  auto killer = [&](int ls, int lc) {
+    const bool shared = ls != kNotRemoved && (ls == r1s || ls == r2s);
+    return (shared && ls > ref && lc != client) ? ls : kNotRemoved;
+  };
+  const int k1s = killer(l1s, l1c), k2s = killer(l2s, l2c);
+  kill_seq = min(k1s, k2s);
+  kill_client = k1s <= k2s ? l1c : l2c;
+}
+
+// The row as warp-uniform values.
+struct Row {
+  int kind, seq, client, ref, msn, a, b;
+  const int32_t* pv;  // [K] in the op tile
+};
+
+// Stamp one piece (view cum c, length v) of a slot for a range row;
+// x holds the slot's planes.  Returns whether the piece is covered.
+__device__ __forceinline__ bool stamp_piece(int32_t (&x)[N_FIXED],
+                                            const Row& r, int c, int v,
+                                            bool expired, bool& over) {
+  const bool covered = c >= r.a && c + v <= r.b && v > 0;
+  const bool is_obl = r.kind == K_OBLITERATE;
+  const bool rem_like = r.kind == K_REMOVE || is_obl;
+  const int rem = x[REM_SEQ], rem2 = x[REM2_SEQ];
+  bool first_win = covered && rem == kNotRemoved && rem_like;
+  const bool again = covered && rem != kNotRemoved && rem_like;
+  const bool second = again && rem2 == kNotRemoved;
+  over |= again && rem2 != kNotRemoved;  // a third remover
+  if (is_obl) {
+    // Also stamp zero-width slots strictly inside the range.
+    const bool obl_zero = !expired && v == 0 && c > r.a && c < r.b;
+    first_win |= obl_zero && rem == kNotRemoved;
+    const bool stamp = covered || obl_zero;
+    const int ob1 = x[OB1_SEQ], ob2 = x[OB2_SEQ];
+    const bool to_ob1 = stamp && ob1 == kNotRemoved;
+    const bool to_ob2 = stamp && !to_ob1 && ob2 == kNotRemoved
+        && ob1 != r.seq;
+    over |= stamp && ob1 != kNotRemoved && ob2 != kNotRemoved
+        && ob1 != r.seq && ob2 != r.seq;
+    if (to_ob1) { x[OB1_SEQ] = r.seq; x[OB1_CLIENT] = r.client; }
+    if (to_ob2) { x[OB2_SEQ] = r.seq; x[OB2_CLIENT] = r.client; }
+  }
+  if (first_win) { x[REM_SEQ] = r.seq; x[REM_CLIENT] = r.client; }
+  if (second) { x[REM2_SEQ] = r.seq; x[REM2_CLIENT] = r.client; }
+  return covered;
+}
+
+// The row's one combined move over pre-row slots [lo, hi), top down in
+// 32-slot chunks: every slot is read, then written once at its final
+// place, split into its pieces and (range rows) stamped.  Returns whether
+// a piece overflowed (a third remover or stamp).
+__device__ bool move_and_stamp(const Doc& doc, const Row& r, const View& w,
+                               bool cut_a, bool cut_b, int lo, int hi) {
+  const int S = doc.S, K = doc.K, lane = doc.lane;
+  const bool is_ins = r.kind == K_INSERT;
+  const bool is_ann = r.kind == K_ANNOTATE;
+  bool over = false;
+  for (int top = hi; top > lo; top -= 32) {
+    const int s = top - 32 + lane;
+    const bool act = s >= lo;
+    int32_t x[N_FIXED];
+    int np = 0, base = 0;
+    int c = 0, v = 0, cut0 = 0, cut1 = 0;
+    bool expired = false;
+    if (act) {
+#pragma unroll
+      for (int p = 0; p < N_FIXED; ++p) x[p] = doc.at(p, s);
+      if (s < w.vend) {
+        c = doc.cbuf[s];
+        v = doc.vbuf[s];
+      }
+      const bool sa = cut_a && s == w.ia, sb = cut_b && s == w.ib;
+      np = 1 + sa + sb;
+      cut0 = sa && sb ? min(r.a, r.b) : (sa ? r.a : r.b);
+      cut1 = max(r.a, r.b);
+      base = s + (cut_a && w.ia < s) + (cut_b && w.ib < s);
+      const int msn = r.msn;
+      const bool ob1_live = x[OB1_SEQ] != kNotRemoved && x[OB1_SEQ] > msn;
+      const bool ob2_live = x[OB2_SEQ] != kNotRemoved && x[OB2_SEQ] > msn;
+      expired = x[REM_SEQ] != kNotRemoved && x[REM_SEQ] <= msn
+          && x[INS_SEQ] <= msn && !ob1_live && !ob2_live;
+    }
+    __syncwarp();  // the chunk is read before any of it is overwritten
+    unsigned covered = 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k >= np) break;
+      const int start = k == 0 ? c : (k == 1 ? cut0 : cut1);
+      const int end = k + 1 == np ? c + v : (k == 0 ? cut0 : cut1);
+      int32_t y[N_FIXED];
+#pragma unroll
+      for (int p = 0; p < N_FIXED; ++p) y[p] = x[p];
+      if (np > 1) {
+        y[TSTART] = x[TSTART] + (start - c);
+        y[TLEN] = end - start;
+      }
+      if (!is_ins && s < w.vend
+          && stamp_piece(y, r, start, end - start, expired, over))
+        covered |= 1u << k;
+      const int p = base + k;
+      const int dst = p + (is_ins && p >= w.ja);
+      if (dst < S) {
+#pragma unroll
+        for (int q = 0; q < N_FIXED; ++q) doc.at(q, dst) = y[q];
+      }
+    }
+    for (int kk = 0; kk < K; ++kk) {
+      const int32_t pv0 = act ? doc.props[s * K + kk] : 0;
+      __syncwarp();
+      const int32_t pv = r.pv[kk];
+      for (int k = 0; k < np; ++k) {
+        const int p = base + k;
+        const int dst = p + (is_ins && p >= w.ja);
+        const bool touch = is_ann && ((covered >> k) & 1u)
+            && pv != kPropNotTouched;
+        if (dst < S) doc.props[dst * K + kk] = touch ? pv : pv0;
+      }
+    }
+    __syncwarp();
+  }
+  return over;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+mergetree_fold_kernel(FoldArgs args) {
+  extern __shared__ __align__(16) int32_t smem[];
   const int S = args.S, T = args.T, K = args.K;
-  const int P = N_FIXED + K;
-  const int NF = N_OPF + K;
-  const int d = blockIdx.x;
-  const int nth = blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int d = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (d >= args.D) return;  // nothing below waits on other warps
 
-  Block blk;
-  blk.tid = threadIdx.x;
-  blk.lane = threadIdx.x & 31;
-  blk.warp = threadIdx.x >> 5;
-  blk.nwarps = nth >> 5;
-  blk.phase = 0;
-
+  int32_t* mine = smem + (size_t)warp * doc_words(S, K);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(mine);
   Doc doc;
   doc.S = S;
-  doc.P = P;
-  doc.cur = smem;
-  doc.nxt = smem + (size_t)P * S;
-  doc.vbuf = doc.nxt + (size_t)P * S;
+  doc.K = K;
+  doc.lane = lane;
+  doc.st = mine + kBarWords;
+  doc.props = doc.st + (size_t)N_FIXED * S;
+  doc.vbuf = doc.props + (size_t)S * K;
   doc.cbuf = doc.vbuf + S;
-  int32_t* opb = doc.cbuf + S;                 // [NF][kOpTile]
-  blk.red = opb + (size_t)NF * kOpTile;        // [kRed]
-  const int R = (S + nth - 1) / nth;
-  doc.s0 = min(S, blk.tid * R);
-  doc.s1 = min(S, doc.s0 + R);
+  doc.opb = doc.cbuf + S;
+  int32_t* pvb = doc.opb + N_OPF * kOpTile;  // [kOpTile][K]
 
-  // State in (coalesced).
-  const size_t dS = (size_t)d * S;
-  for (int p = 0; p < N_FIXED; ++p)
-    for (int s = blk.tid; s < S; s += nth)
-      doc.at(doc.cur, p, s) = args.st_in[p][dS + s];
-  for (int i = blk.tid; i < S * K; i += nth)
-    doc.at(doc.cur, N_FIXED + i % K, i / K) = args.props_in[dS * K + i];
-  doc.n = args.n_in[d];
+  const size_t dS = (size_t)d * S, dT = (size_t)d * T;
+  const uint32_t plane_bytes = (uint32_t)S * 4;
+  const uint32_t props_bytes = (uint32_t)(S * K) * 4;
+  // Bring rows [t0, t0 + tl) of the op tail (and, first, the state) in:
+  // lane 0 arms the warp's mbarrier with the byte count, then each lane
+  // issues one bulk copy; every lane waits on the barrier's phase.
+  uint32_t parity = 0;
+  auto load = [&](int t0, int tl, bool with_state) {
+    const uint32_t op_bytes = (uint32_t)tl * 4;
+    const uint32_t total = N_OPF * op_bytes + op_bytes * K
+        + (with_state ? N_FIXED * plane_bytes + props_bytes : 0);
+    fence_async_shared();
+    __syncwarp();  // the previous tile is consumed
+    if (lane == 0) mbar_expect_tx(bar, total);
+    __syncwarp();
+    if (lane < N_OPF) {
+      bulk_load(doc.opb + lane * kOpTile, args.op[lane] + dT + t0, op_bytes,
+                bar);
+    } else if (lane == N_OPF && K > 0) {
+      bulk_load(pvb, args.pvals + (dT + t0) * K, op_bytes * K, bar);
+    } else if (with_state && lane > N_OPF && lane <= N_OPF + N_FIXED) {
+      const int p = lane - N_OPF - 1;
+      bulk_load(doc.st + (size_t)p * S, args.st_in[p] + dS, plane_bytes, bar);
+    } else if (with_state && lane == N_OPF + N_FIXED + 1 && K > 0) {
+      bulk_load(doc.props, args.props_in + dS * K, props_bytes, bar);
+    }
+    mbar_wait(bar, parity);
+    parity ^= 1;
+  };
+
+  if (lane == 0) mbar_init(bar);
+  __syncwarp();
+  int n = args.n_in[d];
   bool overflow = args.ov_in[d] != 0;
 
-  const size_t dT = (size_t)d * T;
   for (int t0 = 0; t0 < T; t0 += kOpTile) {
     const int tl = min(kOpTile, T - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int f = 0; f < N_OPF; ++f)
-      for (int i = blk.tid; i < tl; i += nth)
-        opb[f * kOpTile + i] = args.op[f][dT + t0 + i];
-    for (int i = blk.tid; i < tl * K; i += nth)
-      opb[(N_OPF + i % K) * kOpTile + i / K] =
-          args.pvals[(dT + t0) * K + i];
-    __syncthreads();
-
+    load(t0, tl, t0 == 0);
     for (int ti = 0; ti < tl; ++ti) {
-      const int kind = opb[O_KIND * kOpTile + ti];
-      if (kind < K_INSERT || kind > K_OBLITERATE) continue;  // inert row
-      const int seq = opb[O_SEQ * kOpTile + ti];
-      const int client = opb[O_CLIENT * kOpTile + ti];
-      const int ref = opb[O_REF * kOpTile + ti];
-      const int msn = opb[O_MIN * kOpTile + ti];
-      const int a = opb[O_A * kOpTile + ti];
-      const int b = opb[O_B * kOpTile + ti];
-      const bool is_ins = kind == K_INSERT;
+      Row r;
+      r.kind = doc.opb[O_KIND * kOpTile + ti];
+      if (r.kind < K_INSERT || r.kind > K_OBLITERATE) continue;  // inert
+      r.seq = doc.opb[O_SEQ * kOpTile + ti];
+      r.client = doc.opb[O_CLIENT * kOpTile + ti];
+      r.ref = doc.opb[O_REF * kOpTile + ti];
+      r.msn = doc.opb[O_MIN * kOpTile + ti];
+      r.a = doc.opb[O_A * kOpTile + ti];
+      r.b = doc.opb[O_B * kOpTile + ti];
+      r.pv = pvb + ti * K;
+      const bool is_ins = r.kind == K_INSERT;
+      const int nl = min(n, S);  // live slots held
 
-      // Boundary splits.
-      doc.split_at(blk, a, ref, client);
-      if (!is_ins) doc.split_at(blk, b, ref, client);
-      doc.view(blk, ref, client);
+      const View w = take_view(doc, nl, r.ref, r.client, r.a, r.b, is_ins);
+      const bool cut_a = w.ia >= 0;
+      const bool cut_b = !is_ins && w.ib >= 0 && !(w.ib == w.ia && r.b == r.a);
 
       if (is_ins) {
-        // Tie-break index: first active slot with cum >= pos, else n.
-        int jf = S;
-        for (int s = doc.s0; s < doc.s1; ++s)
-          if (s < doc.n && doc.cbuf[s] >= a) jf = min(jf, s);
-        jf = blk.min_all(jf);
-        const int j = jf < S ? jf : doc.n;
-        // Obliterate-on-arrival: nearest non-expired neighbours of j.
-        int right = S, left = -1;
-        for (int s = doc.s0; s < doc.s1; ++s) {
-          if (s >= doc.n || doc.expired(s, msn)) continue;
-          if (s < j) left = max(left, s);
-          else right = min(right, s);
-        }
-        blk.minmax_all(right, left);
-        const bool has_l = left >= 0, has_r = right < S;
-        const int l1s = has_l ? doc.at(doc.cur, OB1_SEQ, left) : kNotRemoved;
-        const int l2s = has_l ? doc.at(doc.cur, OB2_SEQ, left) : kNotRemoved;
-        const int l1c = has_l ? doc.at(doc.cur, OB1_CLIENT, left)
-                              : kNotRemoved;
-        const int l2c = has_l ? doc.at(doc.cur, OB2_CLIENT, left)
-                              : kNotRemoved;
-        const int r1s = has_r ? doc.at(doc.cur, OB1_SEQ, right)
-                              : kNotRemoved;
-        const int r2s = has_r ? doc.at(doc.cur, OB2_SEQ, right)
-                              : kNotRemoved;
-        auto killer = [&](int ls, int lc) {
-          const bool shared = ls != kNotRemoved && (ls == r1s || ls == r2s);
-          return (shared && ls > ref && lc != client) ? ls : kNotRemoved;
-        };
-        const int k1s = killer(l1s, l1c), k2s = killer(l2s, l2c);
-        const int kill_seq = min(k1s, k2s);
-        const int kill_client = k1s <= k2s ? l1c : l2c;
-        const bool killed = kill_seq != kNotRemoved;
-        int fresh[N_FIXED] = {
-            opb[O_TSTART * kOpTile + ti], opb[O_TLEN * kOpTile + ti],
-            seq, client,
-            killed ? kill_seq : kNotRemoved, killed ? kill_client : -1,
-            kNotRemoved, -1,
-            killed ? kill_seq : kNotRemoved, killed ? kill_client : -1,
-            kNotRemoved, -1};
-        for (int s = doc.s0; s < doc.s1; ++s) {
-          if (s < j) {
-            for (int p = 0; p < P; ++p) doc.at(doc.nxt, p, s) =
-                doc.at(doc.cur, p, s);
-          } else if (s == j) {
-            for (int p = 0; p < N_FIXED; ++p) doc.at(doc.nxt, p, s) =
-                fresh[p];
-            for (int k = 0; k < K; ++k) {
-              const int pv = opb[(N_OPF + k) * kOpTile + ti];
-              doc.at(doc.nxt, N_FIXED + k, s) =
-                  pv == kPropNotTouched ? kPropAbsent : pv;
-            }
-          } else {
-            for (int p = 0; p < P; ++p) doc.at(doc.nxt, p, s) =
-                doc.at(doc.cur, p, s - 1);
+        int kill_seq, kill_client;
+        arrival_kill(doc, nl, w, r.msn, r.ref, r.client, kill_seq,
+                     kill_client);
+        move_and_stamp(doc, r, w, cut_a, false, cut_a ? w.ia : w.ja, nl);
+        if (lane == 0 && w.ja < S) {
+          const bool killed = kill_seq != kNotRemoved;
+          const int32_t fresh[N_FIXED] = {
+              doc.opb[O_TSTART * kOpTile + ti],
+              doc.opb[O_TLEN * kOpTile + ti], r.seq, r.client,
+              killed ? kill_seq : kNotRemoved, killed ? kill_client : -1,
+              kNotRemoved, -1,
+              killed ? kill_seq : kNotRemoved, killed ? kill_client : -1,
+              kNotRemoved, -1};
+#pragma unroll
+          for (int p = 0; p < N_FIXED; ++p) doc.at(p, w.ja) = fresh[p];
+          for (int k = 0; k < K; ++k) {
+            const int32_t pv = r.pv[k];
+            doc.props[w.ja * K + k] = pv == kPropNotTouched ? kPropAbsent : pv;
           }
         }
-        doc.swap_after_shift();
+        __syncwarp();
+        n += 1 + cut_a;
       } else {
-        // remove / annotate / obliterate over [a, b) in the view.
-        const bool is_obl = kind == K_OBLITERATE;
-        const bool rem_like = kind == K_REMOVE || is_obl;
-        const bool is_ann = kind == K_ANNOTATE;
-        bool over = false;
-        for (int s = doc.s0; s < doc.s1; ++s) {
-          const int v = doc.vbuf[s], c = doc.cbuf[s];
-          const bool active = s < doc.n;
-          const bool covered = c >= a && c + v <= b && v > 0 && active;
-          const int rem = doc.at(doc.cur, REM_SEQ, s);
-          const int rem2 = doc.at(doc.cur, REM2_SEQ, s);
-          bool first_win = covered && rem == kNotRemoved && rem_like;
-          const bool again = covered && rem != kNotRemoved && rem_like;
-          const bool second = again && rem2 == kNotRemoved;
-          over |= again && rem2 != kNotRemoved;  // a third remover
-          if (is_obl) {
-            // Also stamp zero-width slots strictly inside the range.
-            const bool obl_zero = active && !doc.expired(s, msn) && v == 0
-                && c > a && c < b;
-            first_win |= obl_zero && rem == kNotRemoved;
-            const bool stamp = covered || obl_zero;
-            const int ob1 = doc.at(doc.cur, OB1_SEQ, s);
-            const int ob2 = doc.at(doc.cur, OB2_SEQ, s);
-            const bool to_ob1 = stamp && ob1 == kNotRemoved;
-            const bool to_ob2 = stamp && !to_ob1 && ob2 == kNotRemoved
-                && ob1 != seq;
-            over |= stamp && ob1 != kNotRemoved && ob2 != kNotRemoved
-                && ob1 != seq && ob2 != seq;
-            if (to_ob1) {
-              doc.at(doc.cur, OB1_SEQ, s) = seq;
-              doc.at(doc.cur, OB1_CLIENT, s) = client;
-            }
-            if (to_ob2) {
-              doc.at(doc.cur, OB2_SEQ, s) = seq;
-              doc.at(doc.cur, OB2_CLIENT, s) = client;
-            }
-          }
-          if (first_win) {
-            doc.at(doc.cur, REM_SEQ, s) = seq;
-            doc.at(doc.cur, REM_CLIENT, s) = client;
-          }
-          if (second) {
-            doc.at(doc.cur, REM2_SEQ, s) = seq;
-            doc.at(doc.cur, REM2_CLIENT, s) = client;
-          }
-          if (is_ann && covered) {
-            for (int k = 0; k < K; ++k) {
-              const int pv = opb[(N_OPF + k) * kOpTile + ti];
-              if (pv != kPropNotTouched) doc.at(doc.cur, N_FIXED + k, s) = pv;
-            }
-          }
-        }
-        overflow |= __syncthreads_or(over) != 0;
+        int lo = w.ja;
+        if (cut_a) lo = min(lo, w.ia);
+        if (cut_b) lo = min(lo, w.ib);
+        const int hi = (cut_a || cut_b) ? nl : w.vend;
+        const bool over = move_and_stamp(doc, r, w, cut_a, cut_b, lo, hi);
+        overflow |= __any_sync(kFull, over) != 0;
+        n += cut_a + cut_b;
       }
     }
   }
-  __syncthreads();
 
-  // State out (coalesced).
-  for (int p = 0; p < N_FIXED; ++p)
-    for (int s = blk.tid; s < S; s += nth)
-      args.st_out[p][dS + s] = doc.at(doc.cur, p, s);
-  for (int i = blk.tid; i < S * K; i += nth)
-    args.props_out[dS * K + i] = doc.at(doc.cur, N_FIXED + i % K, i / K);
-  if (blk.tid == 0) {
-    args.n_out[d] = doc.n;
+  // State out: each lane sends one row back with a bulk copy.
+  fence_async_shared();
+  __syncwarp();
+  if (lane < N_FIXED) {
+    bulk_store(args.st_out[lane] + dS, doc.st + (size_t)lane * S,
+               plane_bytes);
+  } else if (lane == N_FIXED && K > 0) {
+    bulk_store(args.props_out + dS * K, doc.props, props_bytes);
+  } else if (lane == 31) {
+    args.n_out[d] = n;
     args.ov_out[d] = overflow ? 1 : 0;
   }
+}
+
+// Documents per block: the W of 1, 2, 4, 8 that keeps the most documents
+// resident per SM (smaller W on a tie), and the blocks per SM that gives.
+struct LaunchShape {
+  int warps, blocks_per_sm;
+  size_t bytes;
+};
+
+// Launch shapes already found, per (device, S, K), so the attribute calls
+// and occupancy queries run once per key and not on every launch.
+struct ShapeEntry {
+  int dev, S, K;
+  LaunchShape shape;
+};
+std::mutex g_shapes_mu;
+std::vector<ShapeEntry> g_shapes;
+
+cudaError_t find_launch_shape(int dev, int S, int K, LaunchShape* out) {
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(mergetree_fold_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(mergetree_fold_kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const size_t per_doc = doc_words(S, K) * sizeof(int32_t);
+  LaunchShape best{0, 0, 0};
+  for (int w = 1; w <= kMaxWarps; w *= 2) {
+    const size_t bytes = w * per_doc;
+    if (bytes > (size_t)optin) break;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, mergetree_fold_kernel, w * 32, bytes);
+    if (e != cudaSuccess) return e;
+    if (blocks * w > best.blocks_per_sm * best.warps)
+      best = LaunchShape{w, blocks, bytes};
+  }
+  if (best.warps == 0) return cudaErrorInvalidConfiguration;
+  *out = best;
+  return cudaSuccess;
+}
+
+cudaError_t launch_shape(int S, int K, LaunchShape* out) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(g_shapes_mu);
+  for (const ShapeEntry& c : g_shapes) {
+    if (c.dev == dev && c.S == S && c.K == K) {
+      *out = c.shape;
+      return cudaSuccess;
+    }
+  }
+  e = find_launch_shape(dev, S, K, out);
+  if (e == cudaSuccess) g_shapes.push_back(ShapeEntry{dev, S, K, *out});
+  return e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block needs for a document of S slots and K
-// props keys (the wrapper refuses shapes above the card's limit).
+// Shared-memory bytes one document needs for S slots and K props keys
+// (the wrapper refuses shapes above what one block can address).
 long long mergetree_fold_smem_bytes(int S, int K) {
-  return (long long)(smem_words(S, K) * sizeof(int32_t));
+  return (long long)(doc_words(S, K) * sizeof(int32_t));
+}
+
+// The launch the kernel takes at (S, K) on the current device:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor for it, with the
+// documents (warps) per block in *docs_per_block.  Returns blocks per SM,
+// or minus the CUDA error.
+int mergetree_fold_occupancy(int S, int K, int* docs_per_block) {
+  LaunchShape shape;
+  const cudaError_t e = launch_shape(S, K, &shape);
+  if (e != cudaSuccess) return -(int)e;
+  *docs_per_block = shape.warps;
+  return shape.blocks_per_sm;
 }
 
 // ptrs: the FoldArgs pointers in declaration order (9 op fields, pvals,
@@ -459,14 +659,11 @@ int mergetree_fold(void* const* ptrs, int D, int S, int T, int K,
   args.T = T;
   args.K = K;
   if (D == 0) return 0;
-  const size_t bytes = smem_words(S, K) * sizeof(int32_t);
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mergetree_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  mergetree_fold_kernel<<<D, n_threads_for(S), bytes,
+  LaunchShape shape;
+  const cudaError_t e = launch_shape(S, K, &shape);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (D + shape.warps - 1) / shape.warps;
+  mergetree_fold_kernel<<<blocks, shape.warps * 32, shape.bytes,
                           (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }

@@ -23,23 +23,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _assert_live_equal(want, got):
-    S = want.tstart.shape[1]
-    live = torch.arange(S, device=want.n.device)[None, :] < want.n[:, None]
-    assert torch.equal(want.n, got.n)
-    assert torch.equal(want.overflow, got.overflow)
-    for f in mt.EXPORT_SLOT_FIELDS:
-        a, b = getattr(want, f), getattr(got, f)
-        assert torch.equal(torch.where(live, a, 0), torch.where(live, b, 0)), f
-    mask = live[:, :, None]
-    assert torch.equal(torch.where(mask, want.props, 0),
-                       torch.where(mask, got.props, 0))
+def _assert_all_equal(want, got):
+    """Every slot of every plane (dead slots too), ``n``, ``overflow``, and
+    the whole int32 export byte for byte."""
+    for f in mt.MTState._fields:
+        assert torch.equal(getattr(want, f), getattr(got, f)), f
+    assert torch.equal(mt.export_state(want), mt.export_state(got))
 
 
-@pytest.mark.parametrize("corpus", ["fixture", "bench-64x96"])
+CORPORA = {
+    "fixture": workload.hard_docs,
+    "bench-64x96": lambda: [workload.synth_doc(i, 96) for i in range(64)],
+    # S = 3,072: past the limit of a double-buffered state
+    "long-tail-8x1536": lambda: [workload.synth_doc(i, 1536)
+                                 for i in range(8)],
+}
+
+
+@pytest.mark.parametrize("corpus", sorted(CORPORA))
 def test_kernel_matches_plain_fold(cuda, corpus):
-    docs = workload.hard_docs() if corpus == "fixture" else \
-        [workload.synth_doc(i, 96) for i in range(64)]
+    docs = CORPORA[corpus]()
     st_np, ops_np, _meta = mt.pack_mergetree_batch(docs)
     state, ops = state_from_numpy(st_np, cuda), ops_from_numpy(ops_np, cuda)
     before = fold_cuda.fold.launches
@@ -47,9 +50,7 @@ def test_kernel_matches_plain_fold(cuda, corpus):
     torch.cuda.synchronize()
     assert fold_cuda.fold.launches == before + 1
     want = mt.fold_reference(state, ops)
-    _assert_live_equal(want, got)
-    assert torch.equal(mt.export_state(want)[:, -1],
-                       mt.export_state(got)[:, -1])
+    _assert_all_equal(want, got)
 
 
 def test_entry_point_on_card_matches_oracle(cuda):

@@ -14,7 +14,7 @@ PORT = ROOT / "fluidframework_tpu_torch"
 # build/ (gitignored) holds build outputs, not the port's sources
 PORT_FILES = sorted(p for p in PORT.rglob("*.py")
                     if PORT / "build" not in p.parents) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_fold_variants.py"]
 FORBIDDEN = ("jax", "jaxlib", "fluidframework_tpu")
 
 

@@ -49,6 +49,62 @@ def test_fold_reference_matches_pallas_interpret():
     assert_states_equal(ref, got, len(docs))
 
 
+def _dead_planes(state, n):
+    """Each plane's values on slots [n, S), as (plane name, per-doc list)."""
+    planes = {f: np.asarray(getattr(state, f)) for f in mt.EXPORT_SLOT_FIELDS}
+    props = np.asarray(state.props)
+    planes.update({f"props{k}": props[:, :, k] for k in range(props.shape[2])})
+    n = np.asarray(n)
+    return {f: [x[d, n[d]:] for d in range(len(n))] for f, x in planes.items()}
+
+
+@pytest.mark.parametrize("corpus", sorted(FOLD_CORPORA))
+def test_fold_leaves_dead_slots_at_their_fill(corpus):
+    """The invariant the CUDA kernel relies on when it never touches slots
+    [n, S): the input's dead region holds one value per plane, and after
+    the plain fold (and the JAX package's scan) the dead slots [n, S)
+    still hold exactly that value."""
+    docs = FOLD_CORPORA[corpus]()
+    state, ops, _meta = _packed(docs)
+    fills = {}
+    for f, rows in _dead_planes(state, state.n).items():
+        values = np.unique(np.concatenate(rows))
+        assert len(values) == 1, (f, values)
+        fills[f] = values[0]
+    got = _fold_cpu(state, ops)
+    ref = jax.jit(ref_mt.replay_vmapped)(state, ops)
+    np.testing.assert_array_equal(got.n.numpy(), np.asarray(ref.n))
+    got_dead = _dead_planes(got, got.n.numpy())
+    ref_dead = _dead_planes(ref, np.asarray(ref.n))
+    for f, fill in fills.items():
+        for d, (mine, theirs) in enumerate(zip(got_dead[f], ref_dead[f])):
+            np.testing.assert_array_equal(mine, np.full_like(mine, fill),
+                                          err_msg=f"{f} doc {d}")
+            np.testing.assert_array_equal(mine, theirs,
+                                          err_msg=f"{f} doc {d} vs JAX")
+
+
+@pytest.mark.parametrize("dim", ["S", "T"])
+def test_kernel_refuses_rows_it_cannot_bulk_copy(dim):
+    """The kernel moves whole rows with bulk copies, so a plane of S int32
+    or an op field of T int32 must be a multiple of 16 bytes; the wrapper
+    names the shape it refuses (checked on CPU tensors: no card needed)."""
+    S, T = (30, 16) if dim == "S" else (32, 18)
+    ops = mt.MTOps(*[torch.zeros((2, T), dtype=torch.int32)
+                     for _ in range(9)],
+                   pvals=torch.full((2, T, 1), mt.PROP_NOT_TOUCHED,
+                                    dtype=torch.int32))
+    state = mt.cold_start(ops, S)
+    with pytest.raises(ValueError, match=f"{dim}={S if dim == 'S' else T}"):
+        fold_cuda._check(state, ops, torch.device("cpu"))
+    ok_ops = mt.MTOps(*[torch.zeros((2, 16), dtype=torch.int32)
+                        for _ in range(9)],
+                      pvals=torch.full((2, 16, 1), mt.PROP_NOT_TOUCHED,
+                                       dtype=torch.int32))
+    assert fold_cuda._check(mt.cold_start(ok_ops, 32), ok_ops,
+                            torch.device("cpu")) == (2, 32, 16, 1)
+
+
 def test_overflow_doc_sets_overflow():
     """The directed overflow document really overflows (a third remover
     of one segment), so the fallback path is exercised."""
