@@ -7,24 +7,47 @@ port's libraries from the sources in the checkout, and runs in order:
 
 0. card and build — the card's name and power limit, then the C++ packer
    (g++) and the fold kernel (nvcc) built side by side, with the
-   compiler's register/spill report and the kernel's launch as the
-   occupancy query gives it (blocks and documents per SM) at the pinned
-   shape and at the long-tail shape;
-1. kernel vs plain, hard semantics — the committed fixture
-   (``testing/hard_mergetree_docs.json``) folded by the CUDA kernel and by
-   the plain PyTorch fold on the card: every slot of every plane, ``n``
-   and ``overflow`` bit-equal, and the int32 exports byte-identical;
-2. main path at full width — ``replay_mergetree_batch`` over the pinned
-   workload (10,240 docs x 96 ops, one batch), the kernel's launch count
-   read around it, a 256-document sample byte-identical to the CPU
-   oracle, and kernel vs plain on that batch;
-3. long tail — 32 documents of 1,536 ops (S = 3,072 slots), kernel vs
-   plain and the kernel's time;
-4. times — the kernel alone (CUDA events, median of 7), the plain fold
-   once, the end-to-end rate with its stages, and the ``kernels`` line.
+   compiler's register/spill report and the launch each build of the
+   kernel takes (blocks and documents per SM) at the pinned, long-tail
+   and large shapes;
+1. kernel vs plain, hard semantics — the committed fixture folded by the
+   state-out kernel and by the plain PyTorch fold on the card: every slot
+   of every plane, ``n`` and ``overflow`` bit-equal, and the int32
+   exports byte-identical;
+2. main path of the first slice — ``replay_mergetree_batch`` over the
+   pinned workload (10,240 docs x 96 ops, one batch), its launches read
+   around it, a 256-document sample byte-identical to the CPU oracle; the
+   same batch staged by hand; then the state path (``fold_cuda.fold``,
+   the entry later warm tiers call) over the batch, against the plain
+   fold;
+3. long tail — 32 documents of 1,536 ops (S = 3,072 slots, the largest
+   that fits shared memory), kernel vs plain and the kernel's time;
+4. large S (the device-memory placement) — a full wave of cold
+   documents of 2,000 ops (S = 4,096; as many as the build keeps resident
+   on the card, 8 a SM on an H100): the state path against the plain fold
+   (max |err| 0 over every slot, ``n`` and ``overflow``), the first 8
+   alone (one a SM) against the wave's result and timed, then
+   ``pipelined_mergetree_replay`` over the wave (chunks of 1,024) against
+   ``replay_mergetree_batch`` and the oracle;
+5. layouts — the fold+export build against the plain decode → fold →
+   export → digest on the card, leaf by leaf (dtype, shape, bytes), for
+   the fixture (warm), the main batch and cold copies of the fixture's
+   obliterate documents (cold and warm), in every layout the chunk's
+   facts allow, digest on and off: one line per combination;
+6. the pipelined path at full width — ``pipelined_mergetree_replay`` over
+   the pinned workload with the reference's defaults: all summaries equal
+   ``replay_mergetree_batch``'s, the oracle sample identical, the stage
+   dict, and ``h2d_bytes`` / ``d2h_bytes`` equal to the values worked out
+   from ``export_layout_rows`` and the narrow dtypes; then the pipelined
+   and the one-batch rates timed in turns (P B B P, twice);
+7. times — each build of the kernel alone (CUDA events behind a device
+   spin, median of 7; and the whole call), its plain version once, its
+   bound, and the ``kernels`` line.
 
-One JSON object per phase goes to stdout.  Any failure raises (non-zero
-exit, no result line).  The last line is
+Each driven path (the one-batch entry, the state path, the large-S
+paths, the pipeline) runs with every launch count set to 0 just before it
+and read just after.  One JSON object per phase goes to stdout.  Any
+failure raises (non-zero exit, no result line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
 """
@@ -45,6 +68,13 @@ N_DOCS, N_OPS, ORACLE_SAMPLE = 10240, 96, 256
 PINNED_S = 192  # the slots the pinned workload packs to
 #: the long-tail batch: documents whose state needs S = 3,072 slots
 TAIL_DOCS, TAIL_OPS, TAIL_S = 32, 1536, 3072
+#: the large-S documents: cold, past a block's shared memory; the phase
+#: folds a full wave of them, and the first LARGE_DOCS alone
+LARGE_DOCS, LARGE_OPS, LARGE_S = 8, 2000, 4096
+#: the reference's pipeline defaults, and the timed turns (P = pipelined,
+#: B = one batch)
+CHUNK_DOCS = 1024
+TURNS = "PBBPPBBP"
 DEVICE = "cuda"
 KERNEL_SOURCE = "fluidframework_tpu_torch/csrc/mergetree_fold.cu"
 TPU_KERNEL = "fluidframework_tpu/ops/pallas_fold.py:419"
@@ -126,19 +156,6 @@ def state_diff(want, got):
     return err, first
 
 
-def export_diff(want, got):
-    """Largest |difference| of two int32 exports over the whole buffer;
-    0 only when the two are byte-identical."""
-    import torch
-
-    if want.shape != got.shape or want.dtype != got.dtype:
-        raise AssertionError(f"exports differ in layout: {want.shape} "
-                             f"{want.dtype} vs {got.shape} {got.dtype}")
-    if torch.equal(want, got):
-        return 0
-    return max(1, int((want.long() - got.long()).abs().max()))
-
-
 def kernel_vs_plain(state, ops):
     """Fold once with the kernel and once with the plain fold, both on the
     card; returns (max_abs_err, plain_ms, kernel_final)."""
@@ -155,25 +172,23 @@ def kernel_vs_plain(state, ops):
     end.record()
     torch.cuda.synchronize()
     err, first = state_diff(want, got)
-    err = max(err, export_diff(mt.export_state(want), mt.export_state(got)))
+    err = max(err, leaves_diff(mt.export_state(want), mt.export_state(got)))
     if err:
         print(f"kernel vs plain: first mismatch (field, index, plain, "
               f"kernel) = {first}", file=sys.stderr)
     return err, start.elapsed_time(end), got
 
 
-def time_kernel(state, ops, reps=7, spin=True):
-    """The kernel's device time: median of ``reps`` launches, each timed
-    with CUDA events behind a short device-side spin, so the events bound
-    the kernel and not the host's time to enqueue it (the wrapper's
+def time_call(fn, reps=7, spin=True):
+    """A launch's device time: median of ``reps`` calls of ``fn``, each
+    timed with CUDA events behind a short device-side spin, so the events
+    bound the kernel and not the host's time to enqueue it (the wrapper's
     checks and allocations).  ``spin=False`` times the whole call, the
     host's enqueue included wherever the device waits for it."""
     import torch
 
-    from fluidframework_tpu_torch.ops import fold_cuda
-
     for _ in range(2):
-        fold_cuda.fold(state, ops)
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -181,11 +196,107 @@ def time_kernel(state, ops, reps=7, spin=True):
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fold_cuda.fold(state, ops)
+        fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times
+
+
+def timed_once(fn):
+    """(result, ms) of one call, timed with CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def leaves_diff(want, got):
+    """Largest |difference| over the leaves of two exports (a tensor or a
+    tuple of tensors); 0 only when every leaf has the same dtype, shape
+    and bytes.  A leaf count, dtype or shape that differs raises."""
+    import torch
+
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    if len(want) != len(got):
+        raise AssertionError(f"exports differ in leaves: {len(want)} vs "
+                             f"{len(got)}")
+    err = 0
+    for w, g in zip(want, got):
+        if (w.dtype, w.shape) != (g.dtype, g.shape):
+            raise AssertionError(f"exports differ in layout: {w.dtype} "
+                                 f"{tuple(w.shape)} vs {g.dtype} "
+                                 f"{tuple(g.shape)}")
+        if not torch.equal(w, g):
+            err = max(err, 1, int((w.long() - g.long()).abs().max()))
+    return err
+
+
+class PlainExport:
+    """The plain decode → fold → export → digest on the card, with the
+    decoded fold run once per input encoding (the export and digest are
+    then taken per layout)."""
+
+    def __init__(self, S, doc_base):
+        self.S, self.base, self._finals = S, doc_base, {}
+
+    def final(self, state, ops):
+        from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+
+        key = (ops.seq.dtype, None if state is None else state.n.dtype)
+        if key not in self._finals:
+            wide = mt._widen_ops(ops, self.base)
+            start = mt.cold_start(wide, self.S) if state is None \
+                else mt._widen_state(state, self.base)
+            self._finals[key] = mt.fold_reference(start, wide)
+        return self._finals[key]
+
+    def __call__(self, state, ops, layout, digest):
+        from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+
+        return mt.export_final(self.final(state, ops), self.base, layout,
+                               digest)
+
+
+def nbytes(tree):
+    """Bytes of the tensors or arrays in a tree (None counts 0)."""
+    if tree is None:
+        return 0
+    leaves = tree if isinstance(tree, tuple) else (tree,)
+    return int(sum(x.numel() * x.element_size() if hasattr(x, "numel")
+                   else x.nbytes for x in leaves if x is not None))
+
+
+def expected_transfer(packed):
+    """(h2d, d2h) bytes of a pipelined run worked out from each chunk's
+    layout facts (cold chunks): the op stream in the narrow dtypes when
+    ``i16_ok`` holds (else int32), and the transfer buffer
+    of ``export_layout_rows`` rows (int16 when ``i16_ok``, plus the
+    [D, 4] int32 misc leaf for i8 layouts)."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+
+    h2d = d2h = 0
+    for state, ops, meta, S in packed:
+        if state is not None:
+            raise AssertionError("expected_transfer counts cold chunks")
+        D, T = ops.kind.shape
+        K = meta["props_K"]
+        i16, _ob, _ov, i8, _props = mt._export_flags(meta)
+        size = {f: np.dtype(mt._UPLOAD_NARROW_DTYPES[f]).itemsize if i16
+                else 4 for f in mt.MTOps._fields}
+        h2d += D * T * (sum(size[f] for f in mt.OP_FIELDS)
+                        + K * size["pvals"])
+        d2h += D * mt.export_layout_rows(meta) * S * (2 if i16 else 4)
+        d2h += D * 4 * 4 if i8 else 0
+    return h2d, d2h
 
 
 def fold_work(state, ops):
@@ -249,16 +360,15 @@ def fold_work(state, ops):
     return int(total), int(live_slots)
 
 
-def bound_ms(state, ops, D, S, T, K):
+def bound_ms(state, ops, moved, extra_ops=0):
     """Least time for the fold at these inputs: the larger of the bytes it
-    must move (state in + out, ops once) over HBM and the integer work
-    these inputs need (``fold_work``) over the int32 rate."""
-    state_bytes = D * ((12 + K) * S * 4 + 4 + 1)
-    op_bytes = D * T * (9 + K) * 4
-    moved = 2 * state_bytes + op_bytes
+    must move (``moved``: each input read once, each output written once)
+    over HBM and the integer work these inputs need (``fold_work``, plus
+    ``extra_ops``) over the int32 rate."""
     kind = ops.kind
     real_rows = int(((kind >= 1) & (kind <= 4)).sum())
     int_ops, live_slots = fold_work(state, ops)
+    int_ops += extra_ops
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = int_ops / INT32_OPS_PER_S * 1e3
     return {
@@ -268,6 +378,27 @@ def bound_ms(state, ops, D, S, T, K):
         "real_op_rows": real_rows,
         "mean_live_slots": live_slots / max(1, real_rows),
     }
+
+
+def state_out_bytes(D, S, T, K):
+    """State in + state out + the int32 op stream once."""
+    state_bytes = D * ((12 + K) * S * 4 + 4 + 1)
+    return 2 * state_bytes + D * T * (9 + K) * 4
+
+
+def reset_counts():
+    from fluidframework_tpu_torch.ops import fold_cuda
+
+    fold_cuda.reset_launches()
+
+
+def read_counts():
+    """Launches of each build of the kernel since ``reset_counts``."""
+    from fluidframework_tpu_torch.ops import fold_cuda
+
+    return {f"{entry.__name__}_{where}": n
+            for entry in (fold_cuda.fold, fold_cuda.fold_export)
+            for where, n in entry.placements.items()}
 
 
 def main() -> int:
@@ -281,10 +412,11 @@ def main() -> int:
               "(fluidframework_tpu_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from fluidframework_tpu_torch.convert import (ops_from_numpy,
-                                                  state_from_numpy)
+    from fluidframework_tpu_torch.convert import tensors_to
     from fluidframework_tpu_torch.ops import _cuda_build, fold_cuda
     from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+    from fluidframework_tpu_torch.ops.pipeline import (
+        pipelined_mergetree_replay)
     from fluidframework_tpu_torch.testing import workload
 
     t_run = time.perf_counter()
@@ -292,10 +424,29 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(card, flush=True)
+    launches = {}  # driven path -> launches of each build in that run
+    parity = {"fold_smem": {}, "fold_gmem": {}, "fold_export_smem": {},
+              "fold_export_gmem": {}}
+
+    def drive(path, fn):
+        """Run a path with every count at 0 before it, read after it."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches[path] = read_counts()
+        return out, seconds
+
+    def digests(summaries):
+        return [s.digest() for s in summaries]
 
     # -- 0. card and build ------------------------------------------------
     built = build_all()
-    occ = [fold_cuda.occupancy(PINNED_S, 1), fold_cuda.occupancy(TAIL_S, 1)]
+    occ = [fold_cuda.occupancy(S, 1, kernel=k)
+           for S in (PINNED_S, TAIL_S, LARGE_S)
+           for k in ("fold", "fold_export")]
     with open(_cuda_build.library_path("mergetree_fold") + ".log") as f:
         ptxas = [ln.strip() for ln in f if "registers" in ln
                  or "spill" in ln or "smem" in ln]
@@ -305,14 +456,14 @@ def main() -> int:
           "ptxas": ptxas, "occupancy": occ})
 
     # -- 1. kernel vs plain on the hard-semantics fixture -----------------
-    docs = workload.hard_docs()
-    state_np, ops_np, _meta = mt.pack_mergetree_batch(docs)
-    state = state_from_numpy(state_np, dev)
-    ops = ops_from_numpy(ops_np, dev)
+    fixture = workload.hard_docs()
+    state_np, ops_np, _meta = mt.pack_mergetree_batch(fixture)
+    state = tensors_to(state_np, dev)
+    ops = tensors_to(ops_np, dev)
     err, _plain_ms, got = kernel_vs_plain(state, ops)
-    parity = {"fixture": err}
+    parity["fold_smem"]["fixture"] = err
     over = got.overflow.cpu().tolist()
-    emit({"phase": "hard_semantics", "docs": [d.doc_id for d in docs],
+    emit({"phase": "hard_semantics", "docs": [d.doc_id for d in fixture],
           "shape": list(state_np.props.shape) + [ops_np.kind.shape[1]],
           "max_abs_err": err, "tolerance": 0, "overflow": over})
     if err != 0:
@@ -320,30 +471,27 @@ def main() -> int:
     if not over[-1]:
         raise AssertionError("the overflow document did not overflow")
 
-    # -- 2. main path at full width ---------------------------------------
+    # -- 2. the first slice's main path at full width ----------------------
     t = time.perf_counter()
     docs = [workload.synth_doc(i, N_OPS) for i in range(N_DOCS)]
     synth_s = time.perf_counter() - t
     stats = {}
-    fold_cuda.fold.launches = 0
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    summaries = mt.replay_mergetree_batch(docs, stats=stats, device=dev)
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t
-    launches = fold_cuda.fold.launches
+    summaries, e2e_s = drive("batch", lambda: mt.replay_mergetree_batch(
+        docs, stats=stats, device=dev))
     n_ops = N_DOCS * N_OPS
-    if launches < 1:
-        raise AssertionError("the main path did not launch the fold kernel")
+    if launches["batch"]["fold_export_smem"] != 1:
+        raise AssertionError(f"the one-batch entry did not launch the "
+                             f"fold+export kernel once: {launches['batch']}")
     step = max(1, N_DOCS // ORACLE_SAMPLE)
     sample = list(range(0, N_DOCS, step))[:ORACLE_SAMPLE]
     t = time.perf_counter()
-    mismatched = [docs[i].doc_id for i in sample
-                  if summaries[i].digest()
-                  != workload.oracle_replay(docs[i]).summarize().digest()]
+    oracle = {i: workload.oracle_replay(docs[i]).summarize().digest()
+              for i in sample}
     oracle_s = time.perf_counter() - t
+    mismatched = [docs[i].doc_id for i in sample
+                  if summaries[i].digest() != oracle[i]]
     emit({"phase": "main_path", "docs": N_DOCS, "ops": n_ops,
-          "launches": launches, "stats": stats,
+          "launches": launches["batch"], "stats": stats,
           "oracle_sample": len(sample), "oracle_mismatches": mismatched,
           "synth_s": synth_s, "e2e_s": e2e_s,
           "oracle_sample_s": oracle_s})
@@ -353,89 +501,314 @@ def main() -> int:
     if len(summaries) != N_DOCS:
         raise AssertionError("summary count")
 
-    # The same batch staged by hand: stage times, then kernel vs plain.
+    # The same batch staged by hand.
     t = time.perf_counter()
     state_np, ops_np, meta = mt.pack_mergetree_batch(docs)
     pack_s = time.perf_counter() - t
     D, S = state_np.tstart.shape
     T, K = ops_np.kind.shape[1], state_np.props.shape[2]
+    layout = mt._export_flags(meta)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    ops = ops_from_numpy(ops_np, dev)
-    state = mt.cold_start(ops, S)
+    ops_n = tensors_to(mt.narrow_ops_for_upload(ops_np, meta), dev)
+    base = torch.from_numpy(meta["doc_base"]).to(dev)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t
     t = time.perf_counter()
-    final = fold_cuda.fold(state, ops)
+    export = fold_cuda.fold_export(None, ops_n, base, layout, S=S)
     torch.cuda.synchronize()
     fold_s = time.perf_counter() - t
     t = time.perf_counter()
-    export = mt.export_state(final)
-    torch.cuda.synchronize()
-    export_s = time.perf_counter() - t
-    t = time.perf_counter()
-    export_np = export.cpu().numpy()
+    export_np = mt.export_to_numpy(export)
     download_s = time.perf_counter() - t
     t = time.perf_counter()
     staged = mt.summaries_from_export(meta, export_np)
     summaries_s = time.perf_counter() - t
-    if [s.digest() for s in staged[:64]] != \
-            [s.digest() for s in summaries[:64]]:
+    if digests(staged[:64]) != digests(summaries[:64]):
         raise AssertionError("staged run differs from the entry point")
-    err, plain_ms, _ = kernel_vs_plain(state, ops)
-    parity["main"] = err
-    emit({"phase": "main_batch_parity", "shape": [D, S, T, K],
-          "max_abs_err": err, "tolerance": 0, "plain_ms": plain_ms})
-    if err != 0:
-        raise AssertionError(f"kernel != plain fold on the main batch: {err}")
     if S != PINNED_S:
         raise AssertionError(f"the pinned batch packed to S={S}, "
                              f"not {PINNED_S}")
 
-    # -- 3. long tail: S = 3,072 ------------------------------------------
+    # The state path over the same batch, against the plain fold.
+    ops = tensors_to(ops_np, dev)
+    state = mt.cold_start(ops, S)
+    final, _ = drive("state", lambda: fold_cuda.fold(state, ops))
+    want, plain_ms = timed_once(lambda: mt.fold_reference(state, ops))
+    err = max(state_diff(want, final)[0],
+              leaves_diff(mt.export_state(want), mt.export_state(final)))
+    parity["fold_smem"]["main"] = err
+    emit({"phase": "main_batch_parity", "shape": [D, S, T, K],
+          "layout": layout, "max_abs_err": err, "tolerance": 0,
+          "plain_ms": plain_ms, "launches": launches["state"]})
+    if err != 0:
+        raise AssertionError(f"kernel != plain fold on the main batch: {err}")
+
+    # -- 3. long tail: S = 3,072 in shared memory -------------------------
     tail_docs = [workload.synth_doc(i, TAIL_OPS) for i in range(TAIL_DOCS)]
     tail_np, tail_ops_np, _meta = mt.pack_mergetree_batch(tail_docs)
-    tail_ops = ops_from_numpy(tail_ops_np, dev)
-    tail_state = state_from_numpy(tail_np, dev)
+    tail_ops = tensors_to(tail_ops_np, dev)
+    tail_state = tensors_to(tail_np, dev)
     if tail_np.tstart.shape[1] != TAIL_S:
         raise AssertionError(f"the long tail packed to "
                              f"S={tail_np.tstart.shape[1]}, not {TAIL_S}")
     tail_err, tail_plain_ms, _ = kernel_vs_plain(tail_state, tail_ops)
-    parity["long_tail"] = tail_err
-    tail_ms, tail_runs = time_kernel(tail_state, tail_ops)
+    parity["fold_smem"]["long_tail"] = tail_err
+    tail_ms, tail_runs = time_call(lambda: fold_cuda.fold(tail_state,
+                                                          tail_ops))
     emit({"phase": "long_tail", "shape": list(tail_np.props.shape)
           + [tail_ops_np.kind.shape[1]], "max_abs_err": tail_err,
           "tolerance": 0, "kernel_ms": tail_ms, "kernel_runs_ms": tail_runs,
-          "plain_ms": tail_plain_ms})
+          "plain_ms": tail_plain_ms,
+          "placement": fold_cuda.placement(TAIL_S, 1)})
     if tail_err != 0:
         raise AssertionError(f"kernel != plain fold on the long tail: "
                              f"{tail_err}")
 
-    # -- 4. times ----------------------------------------------------------
-    ms, runs = time_kernel(state, ops)
-    call_ms, _ = time_kernel(state, ops, spin=False)
-    bound = bound_ms(state, ops, D, S, T, K)
-    staged_s = pack_s + upload_s + fold_s + export_s + download_s \
-        + summaries_s
-    emit({"phase": "times", "card": card, "kernel_ms": ms,
-          "kernel_runs_ms": runs, "kernel_call_ms": call_ms,
-          "gap_to_bound": ms / bound["bound_ms"],
-          "docs_per_sm": occ[0]["docs_per_sm"], "plain_ms": plain_ms,
-          "bound": bound, "e2e_ops_per_s": n_ops / e2e_s,
+    # -- 4. large S: the device-memory placement --------------------------
+    # A full wave: as many documents as the device-memory build keeps
+    # resident on the card at once, so they share each SM's L1 as a real
+    # chunk of long documents does.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = fold_cuda.occupancy(LARGE_S, 1)["docs_per_sm"]
+    wave = per_sm * sms
+    t = time.perf_counter()
+    wave_docs = [workload.synth_doc(i, LARGE_OPS) for i in range(wave)]
+    wave_synth_s = time.perf_counter() - t
+    large_docs = wave_docs[:LARGE_DOCS]
+    lg_np, lg_ops_np, lg_meta = mt.pack_mergetree_batch(wave_docs)
+    lg_S, lg_T = lg_np.tstart.shape[1], lg_ops_np.kind.shape[1]
+    if lg_S != LARGE_S or fold_cuda.placement(lg_S, 1) != "gmem":
+        raise AssertionError(f"the large batch packed to S={lg_S} "
+                             f"({fold_cuda.placement(lg_S, 1)}), not "
+                             f"{LARGE_S} in device memory")
+    lg_ops = tensors_to(lg_ops_np, dev)
+    lg_state = tensors_to(lg_np, dev)
+    lg_final, _ = drive("large_state",
+                        lambda: fold_cuda.fold(lg_state, lg_ops))
+    lg_want, lg_plain_ms = timed_once(
+        lambda: mt.fold_reference(lg_state, lg_ops))
+    lg_err, lg_first = state_diff(lg_want, lg_final)
+    lg_err = max(lg_err, leaves_diff(mt.export_state(lg_want),
+                                     mt.export_state(lg_final)))
+    parity["fold_gmem"]["large_s"] = lg_err
+    if lg_err != 0:
+        raise AssertionError(f"kernel != plain fold in device memory at S="
+                             f"{lg_S}: {lg_err}, first {lg_first}")
+    lg_ms, lg_runs = time_call(lambda: fold_cuda.fold(lg_state, lg_ops))
+    lg_call_ms, _ = time_call(lambda: fold_cuda.fold(lg_state, lg_ops),
+                              spin=False)
+    # The first LARGE_DOCS documents alone: one a SM, each with an L1 to
+    # itself (the same rows of the same tensors, so the wave's result is
+    # their yardstick).
+    few_state = mt.MTState(*(x[:LARGE_DOCS] for x in lg_state))
+    few_ops = mt.MTOps(*(x[:LARGE_DOCS] for x in lg_ops))
+    few_err, _ = state_diff(mt.MTState(*(x[:LARGE_DOCS] for x in lg_final)),
+                            fold_cuda.fold(few_state, few_ops))
+    parity["fold_gmem"]["large_s_one_per_sm"] = few_err
+    few_ms, few_runs = time_call(lambda: fold_cuda.fold(few_state, few_ops))
+    lg_summaries, lg_pipe_s = drive(
+        "large_pipeline",
+        lambda: pipelined_mergetree_replay(wave_docs, device=dev))
+    lg_batch = mt.replay_mergetree_batch(wave_docs, device=dev)
+    lg_oracle = [workload.oracle_replay(d).summarize().digest()
+                 for d in wave_docs[:2]]
+    bytes_per_doc = fold_cuda.occupancy(lg_S, 1)["bytes_per_doc"]
+    emit({"phase": "large_s", "shape": [wave, lg_S, lg_T, 1],
+          "sms": sms, "docs_per_sm": per_sm, "bytes_per_doc": bytes_per_doc,
+          "scratch_bytes": wave * bytes_per_doc, "synth_s": wave_synth_s,
+          "max_abs_err": lg_err, "tolerance": 0, "kernel_ms": lg_ms,
+          "kernel_runs_ms": lg_runs, "kernel_call_ms": lg_call_ms,
+          "plain_ms": lg_plain_ms, "launches": launches["large_state"],
+          "one_per_sm": {"docs": LARGE_DOCS, "max_abs_err": few_err,
+                         "kernel_ms": few_ms, "kernel_runs_ms": few_runs},
+          "pipeline_launches": launches["large_pipeline"],
+          "pipeline_s": lg_pipe_s,
+          "pipeline_equals_batch": digests(lg_summaries)
+          == digests(lg_batch),
+          "oracle_identical": digests(lg_summaries[:2]) == lg_oracle})
+    if few_err != 0:
+        raise AssertionError(f"the one-per-SM launch differs from the "
+                             f"wave's: {few_err}")
+    if digests(lg_summaries) != digests(lg_batch) \
+            or digests(lg_summaries[:2]) != lg_oracle:
+        raise AssertionError("large-S summaries differ from the one-batch "
+                             "entry or the oracle")
+
+    # -- 5. layouts: the fold+export build against the plain chain ---------
+    layout_corpora = [
+        ("fixture", mt.pack_mergetree_batch(fixture), ["warm"]),
+        ("main", (state_np, ops_np, meta), ["cold", "warm"]),
+        ("obliterate_lagged",
+         mt.pack_mergetree_batch(workload.cold_fixture_docs(8)),
+         ["cold", "warm"]),
+        ("large_s", mt.pack_mergetree_batch(large_docs), ["cold"]),
+    ]
+    n_combos = 0
+    for corpus, (c_st, c_ops, c_meta), warmths in layout_corpora:
+        c_S = c_st.tstart.shape[1]
+        c_base = torch.from_numpy(c_meta["doc_base"]).to(dev)
+        plain = PlainExport(c_S, c_base)
+        where = fold_cuda.placement(c_S, c_st.props.shape[2])
+        for label, m in workload.layout_metas(c_meta):
+            c_layout = mt._export_flags(m)
+            o = tensors_to(mt.narrow_ops_for_upload(c_ops, m), dev)
+            for warmth in warmths:
+                st = None if warmth == "cold" else tensors_to(
+                    mt.narrow_state_for_upload(c_st, m), dev)
+                for digest in (False, True):
+                    got = fold_cuda.fold_export(st, o, c_base, c_layout,
+                                                digest, S=c_S)
+                    err = leaves_diff(plain(st, o, c_layout, digest), got)
+                    key = f"fold_export_{where}"
+                    parity[key][corpus] = max(parity[key].get(corpus, 0),
+                                              err)
+                    emit({"phase": "layout", "corpus": corpus,
+                          "layout": label, "warmth": warmth,
+                          "digest": digest, "placement": where,
+                          "ops": str(o.seq.dtype).split(".")[-1],
+                          "leaves": [[str(x.dtype).split(".")[-1],
+                                      list(x.shape)]
+                                     for x in (got if isinstance(got, tuple)
+                                               else (got,))],
+                          "max_abs_err": err})
+                    if err != 0:
+                        raise AssertionError(
+                            f"fold+export != plain: {corpus} {label} "
+                            f"{warmth} digest={digest}: {err}")
+                    n_combos += 1
+
+    # -- 6. the pipelined path at full width -------------------------------
+    stage, p_stats, packed = {}, {}, []
+    p_summaries, pipe_s = drive("pipeline", lambda: pipelined_mergetree_replay(
+        docs, chunk_docs=CHUNK_DOCS, stats=p_stats, stage=stage,
+        packed_out=packed, device=dev))
+    same = digests(p_summaries) == digests(summaries)
+    p_mismatched = [docs[i].doc_id for i in sample
+                    if p_summaries[i].digest() != oracle[i]]
+    want_h2d, want_d2h = expected_transfer(packed)
+    rates = []
+    for turn in TURNS:
+        run = (lambda: pipelined_mergetree_replay(docs, device=dev)) \
+            if turn == "P" else \
+            (lambda: mt.replay_mergetree_batch(docs, device=dev))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rates.append([turn, n_ops / (time.perf_counter() - t)])
+    emit({"phase": "pipeline", "docs": N_DOCS, "ops": n_ops,
+          "chunks": len(packed), "launches": launches["pipeline"],
+          "stats": p_stats, "stage": stage, "e2e_s": pipe_s,
+          "ops_per_s": n_ops / pipe_s,
+          "equals_batch": same, "oracle_sample": len(sample),
+          "oracle_mismatches": p_mismatched,
+          "h2d_bytes": stage["h2d_bytes"], "h2d_bytes_expected": want_h2d,
+          "d2h_bytes": stage["d2h_bytes"], "d2h_bytes_expected": want_d2h,
+          "turns_ops_per_s": rates,
+          "median_ops_per_s": {
+              side: statistics.median(r for x, r in rates if x == side)
+              for side in "PB"}})
+    if launches["pipeline"]["fold_export_smem"] != len(packed):
+        raise AssertionError(f"the pipeline did not launch the fold+export "
+                             f"kernel once a chunk: {launches['pipeline']}")
+    if not same or p_mismatched:
+        raise AssertionError("pipelined summaries differ from the one-batch "
+                             f"entry ({same}) or the oracle "
+                             f"({p_mismatched[:8]})")
+    if (stage["h2d_bytes"], stage["d2h_bytes"]) != (want_h2d, want_d2h):
+        raise AssertionError("pipelined byte counters differ from the "
+                             "layout's")
+
+    # -- 7. times ----------------------------------------------------------
+    ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
+    call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
+    bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
+    lg_bound = bound_ms(lg_state, lg_ops, state_out_bytes(
+        wave, lg_S, lg_T, 1))
+
+    def fused(corpus, st_ops, fold_ops, fused_ops, c_base, c_layout, c_S):
+        """Times and bound of the fold+export build on a cold chunk (the
+        narrow ops in and the export out, no state read or written), held
+        against the plain chain on the same inputs."""
+        fn = lambda: fold_cuda.fold_export(None, fused_ops, c_base,  # noqa
+                                           c_layout, S=c_S)
+        f_ms, f_runs = time_call(fn)
+        f_call_ms, _ = time_call(fn, spin=False)
+        out = fn()
+        want, f_plain_ms = timed_once(lambda: mt.export_reference(
+            None, fused_ops, c_base, c_layout, S=c_S))
+        key = f"fold_export_{fold_cuda.placement(c_S, 1)}"
+        err = leaves_diff(want, out)
+        parity[key][corpus] = max(parity[key].get(corpus, 0), err)
+        if err != 0:
+            raise AssertionError(f"fold+export != plain on the timed "
+                                 f"{corpus} chunk: {err}")
+        D_, T_ = fused_ops.kind.shape
+        rows = (out[0] if isinstance(out, tuple) else out).shape[1]
+        moved = nbytes(tuple(fused_ops)) + nbytes(c_base) + nbytes(out)
+        f_bound = bound_ms(st_ops, fold_ops, moved,
+                           extra_ops=D_ * rows * c_S)
+        return f_ms, f_runs, f_call_ms, f_plain_ms, f_bound
+
+    fx = fused("main", state, ops, ops_n, base, layout, S)
+    lg_ops_n = tensors_to(mt.narrow_ops_for_upload(lg_ops_np, lg_meta), dev)
+    lg_base = torch.from_numpy(lg_meta["doc_base"]).to(dev)
+    lg_layout = mt._export_flags(lg_meta)
+    lg_fx = fused("large_s", lg_state, lg_ops, lg_ops_n, lg_base,
+                  lg_layout, lg_S)
+    staged_s = pack_s + upload_s + fold_s + download_s + summaries_s
+    emit({"phase": "times", "card": card,
+          "fold_smem": {"ms": ms, "runs_ms": runs, "call_ms": call_ms,
+                        "plain_ms": plain_ms, "bound": bound,
+                        "gap_to_bound": ms / bound["bound_ms"]},
+          "fold_gmem": {"ms": lg_ms, "call_ms": lg_call_ms,
+                        "plain_ms": lg_plain_ms, "bound": lg_bound,
+                        "gap_to_bound": lg_ms / lg_bound["bound_ms"]},
+          "fold_export_smem": {"ms": fx[0], "runs_ms": fx[1],
+                               "call_ms": fx[2], "plain_ms": fx[3],
+                               "bound": fx[4], "layout": layout,
+                               "gap_to_bound": fx[0] / fx[4]["bound_ms"]},
+          "fold_export_gmem": {"ms": lg_fx[0], "call_ms": lg_fx[2],
+                               "plain_ms": lg_fx[3], "bound": lg_fx[4],
+                               "layout": lg_layout,
+                               "gap_to_bound":
+                                   lg_fx[0] / lg_fx[4]["bound_ms"]},
+          "occupancy": occ, "e2e_ops_per_s": n_ops / e2e_s,
           "stages_s": {"pack": pack_s, "upload": upload_s,
-                       "fold": fold_s, "export": export_s,
-                       "download": download_s, "summaries": summaries_s},
-          "staged_ops_per_s": n_ops / staged_s,
+                       "fold_export": fold_s, "download": download_s,
+                       "summaries": summaries_s},
+          "staged_ops_per_s": n_ops / staged_s, "layout_combos": n_combos,
           "run_s": time.perf_counter() - t_run})
-    emit({"kernels": [{
-        "name": "mergetree_fold", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches,
-        "max_abs_err": max(parity.values()), "tolerance": 0,
-        "parity": max(parity.values()) == 0,
-        "max_abs_err_by_batch": parity, "ms": ms, "call_ms": call_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-        "library_ms": None, "card": card}]})
+
+    def entry(name_, where, path, shape, err_by_batch, t_ms, t_call_ms,
+              t_plain_ms, t_bound):
+        n = launches[path][name_]
+        if n < 1:
+            raise AssertionError(f"{name_}: no launch on its path {path}")
+        err = max(err_by_batch.values())
+        return {"name": f"mergetree_{name_}", "route": "cuda",
+                "source": KERNEL_SOURCE,
+                "replaces": TPU_KERNEL, "placement": where,
+                "launches": n, "path": path, "timed_shape": shape,
+                "max_abs_err": err, "tolerance": 0, "parity": err == 0,
+                "max_abs_err_by_batch": err_by_batch, "ms": t_ms,
+                "call_ms": t_call_ms, "plain_ms": t_plain_ms,
+                "bound_ms": t_bound["bound_ms"],
+                "bound_by": t_bound["bound_by"], "library_ms": None,
+                "card": card}
+
+    emit({"kernels": [
+        entry("fold_smem", "smem", "state", [D, S, T, K],
+              parity["fold_smem"], ms, call_ms, plain_ms, bound),
+        entry("fold_gmem", "gmem", "large_state", [wave, lg_S, lg_T, 1],
+              parity["fold_gmem"], lg_ms, lg_call_ms, lg_plain_ms, lg_bound),
+        entry("fold_export_smem", "smem", "pipeline", [D, S, T, K],
+              parity["fold_export_smem"], fx[0], fx[2], fx[3], fx[4]),
+        entry("fold_export_gmem", "gmem", "large_pipeline",
+              [wave, lg_S, lg_T, 1], parity["fold_export_gmem"], lg_fx[0],
+              lg_fx[2], lg_fx[3], lg_fx[4]),
+    ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""Carry the JAX package's packed arrays and document inputs across.
+"""Carry packed arrays and document inputs across.
 
 Everything is read by attribute name, so any object with the ``MTState``
 / ``MTOps`` field names holding numpy arrays converts — the port's own
@@ -11,28 +11,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.mergetree_kernel import MergeTreeDocInput, MTOps, MTState
+from .ops.mergetree_kernel import MergeTreeDocInput
 from .protocol.messages import MessageType, SequencedMessage
 
 
-def _tensor(a, device, dtype=torch.int32) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(
-        device=device, dtype=dtype)
-
-
-def state_from_numpy(obj, device) -> MTState:
-    """An ``MTState`` of tensors on ``device`` from numpy planes: int32
-    slot planes and props, int32 ``n``, bool ``overflow``."""
-    fields = {f: _tensor(getattr(obj, f), device)
-              for f in MTState._fields if f != "overflow"}
-    return MTState(**fields,
-                   overflow=_tensor(obj.overflow, device, torch.bool))
-
-
-def ops_from_numpy(obj, device) -> MTOps:
-    """An ``MTOps`` of int32 tensors on ``device`` from numpy fields."""
-    return MTOps(**{f: _tensor(getattr(obj, f), device)
-                    for f in MTOps._fields})
+def tensors_to(obj, device):
+    """An ``MTState`` / ``MTOps`` (or any namedtuple of arrays) as tensors
+    on ``device`` with each field's dtype kept: the packer's int32 planes
+    and bool ``overflow``, and the narrow upload encodings.  Numpy fields
+    are copied there, tensors moved (or kept, when already there).  None
+    passes through."""
+    if obj is None:
+        return None
+    return type(obj)(**{
+        f: x.to(device) if isinstance(x, torch.Tensor)
+        else torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        for f, x in obj._asdict().items()})
 
 
 def _message_from(m) -> SequencedMessage:

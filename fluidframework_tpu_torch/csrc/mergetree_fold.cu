@@ -63,8 +63,41 @@
 // chip_smoke.py; 80 registers a thread allow 25).  Measured there on an
 // H100 (700 W): 1.11 ms, 12x the bound; of a warp's cycles the view takes
 // 37%, the moves 47%, the insert's neighbour search 14%, the bulk copies 3%.
-// A document whose state does not fit the 227 KB a block can address is
-// refused by the wrapper (ValueError naming S and K).
+//
+// Two placements of the same fold (template parameter kGmem).  A document
+// whose working set (doc_words below) fits the 227 KB a block can address
+// folds in shared memory as above.  A larger one (S above ~3,830 for K = 1,
+// e.g. S = 4,096 for a cold document of more than 2,048 ops) folds in its
+// own slice of a device-memory scratch buffer [D, doc_words] that the
+// wrapper allocates: the same Doc accessors over generic pointers, with
+// plain coalesced copies in place of the bulk copies and mbarrier, and one
+// document per block, 8 resident per SM (the occupancy query, carveout
+// given to L1).  Measured by chip_smoke.py on an H100 (700 W) at S = 4,096:
+// a full wave of 1,056 documents of 2,000 ops in 161 ms, 41x its bound;
+// the first 8 alone (one a SM, an L1 each) in 38 ms.  With 8 warps of an
+// SM sharing its L1 (2 MB of working state), a document takes 4.2x as long
+// as alone, and the 8 together do 1.9x the work of one.
+//
+// Two entries (template parameter kExport).  The state-out entry
+// (mergetree_fold, mergetree_fold_gmem) writes the 12 planes, props, n and
+// overflow back.  The fold+export entry (mergetree_fold_export) is the
+// reference's replay_export fused into the kernel, replacing its XLA
+// prologue and epilogue (mergetree_kernel._cold_start, _widen_ops,
+// _widen_state, _export_state, _doc_digests):
+//   - prologue: a cold chunk's empty state is built in the working area (no
+//     state is read); a warm one is read as int32 or as the int16 upload
+//     encoding (tstart rebased on live slots, I16_NOT_REMOVED mapped back).
+//     Op rows are read with ordinary coalesced loads (int8 rows at T = 24
+//     are 24 bytes, which a bulk copy cannot move) as int32 or as the
+//     narrow upload encoding (int8 kind/client, int16 others, insert tstart
+//     rebased by doc_base[d]);
+//   - epilogue: straight from the working area, the transfer buffer in the
+//     chunk's layout (int32, int16, or int8 pairs in int16 lanes with the
+//     [D, 4] int32 misc leaf; obliterate, overlap-remover and props rows
+//     elided as the host says), and with digest the [D, 2] state digest
+//     (uint32 arithmetic; each lane sums its slots, a warp reduction adds
+//     them).  At the pinned shape this writes ~15.9 MB in place of the
+//     ~102 MB int32 state and torch's re-read to build the export.
 //
 // One view per row.  Take v (visible length) and cum (its exclusive
 // prefix) once, on the row's state before its splits.  A split changes
@@ -101,6 +134,10 @@ namespace {
 constexpr int32_t kNotRemoved = 0x7fffffff;
 constexpr int32_t kPropAbsent = -1;
 constexpr int32_t kPropNotTouched = -2;
+// Sentinels of the narrow encodings (mergetree_kernel.I16_NOT_REMOVED and
+// I8_NOT_REMOVED): NOT_REMOVED as it rides an int16 or an int8 lane.
+constexpr int32_t kI16NotRemoved = 32767;
+constexpr int32_t kI8NotRemoved = 127;
 
 enum Plane {
   TSTART, TLEN, INS_SEQ, INS_CLIENT, REM_SEQ, REM_CLIENT, REM2_SEQ,
@@ -112,11 +149,14 @@ enum OpField {
 enum Kind { K_INSERT = 1, K_REMOVE = 2, K_ANNOTATE = 3, K_OBLITERATE = 4 };
 
 constexpr int kMaxWarps = 8;     // documents per block, at most
+constexpr int kGmemWarps = 1;    // documents per block in device memory
 constexpr int kOpTile = 64;      // op rows staged per bulk load
 constexpr int kBarWords = 4;     // the warp's mbarrier, padded to 16 bytes
 constexpr unsigned kFull = 0xffffffffu;
 
 struct FoldArgs {
+  // Inputs are int32 unless the fold+export entry says otherwise
+  // (op_narrow, st_mode); a narrow array is read through the same pointer.
   const int32_t* op[N_OPF];          // [D, T] each
   const int32_t* pvals;              // [D, T, K]
   const int32_t* st_in[N_FIXED];     // [D, S] each
@@ -127,12 +167,23 @@ struct FoldArgs {
   int32_t* props_out;
   int32_t* n_out;
   uint8_t* ov_out;
+  int32_t* scratch;                  // [D, doc_words] (device memory)
   int D, S, T, K;
+  // -- fold+export entry only --
+  int op_narrow;        // 1: kind/client int8, other fields and pvals int16
+  int st_mode;          // 0: cold (built here), 1: int32, 2: int16 encoding
+  const int32_t* doc_base;           // [D] arena base of each document
+  void* ex_out;         // [D, ex_rows, S], int16 when i16 else int32
+  int32_t* misc_out;    // [D, 4] (i8 layouts)
+  int32_t* digest_out;  // [D, 2], or null
+  int ex_rows, i16, i8, n_fields, n_props_rows;
+  int fields[N_FIXED];  // the exported slot planes, in row order
 };
 
-// int32 words of one document's shared memory: mbarrier, 12 planes +
-// props, v and cum, one op tile (9 fields + pvals).  Every part is a
-// multiple of 4 words when S is, so every row starts 16-byte aligned.
+// int32 words of one document's working area (shared memory, or its slice
+// of the device-memory scratch): mbarrier, 12 planes + props, v and cum,
+// one op tile (9 fields + pvals).  Every part is a multiple of 4 words when
+// S is, so every row starts 16-byte aligned.
 __host__ __device__ inline size_t doc_words(int S, int K) {
   return kBarWords + (size_t)(N_FIXED + K) * S + 2 * (size_t)S
       + (size_t)(N_OPF + K) * kOpTile;
@@ -427,16 +478,234 @@ __device__ bool move_and_stamp(const Doc& doc, const Row& r, const View& w,
   return over;
 }
 
+// -- plain copies (device-memory placement, fold+export entry) -------------
+
+__device__ __forceinline__ bool sentinel_plane(int p) {
+  return p == REM_SEQ || p == REM2_SEQ || p == OB1_SEQ || p == OB2_SEQ;
+}
+
+// The value a plane holds on an empty document (cold_start's fill).
+__device__ __forceinline__ int32_t plane_fill(int p) {
+  if (sentinel_plane(p)) return kNotRemoved;
+  if (p == INS_CLIENT || p == REM_CLIENT || p == REM2_CLIENT
+      || p == OB1_CLIENT || p == OB2_CLIENT)
+    return -1;
+  return 0;
+}
+
+// Op rows [t0, t0 + tl) into the warp's tile with ordinary loads, lane i
+// taking rows i, i + 32, ...: int32, or the narrow upload encoding widened
+// (the reference's _widen_ops: sign extension, and an insert's tstart
+// rebased by the document's arena base; other rows' tstart is 0).
+__device__ void load_ops_plain(const Doc& doc, int32_t* pvb,
+                               const FoldArgs& a, int d, int t0, int tl) {
+  const size_t first = (size_t)d * a.T + t0;
+  const int base = a.op_narrow ? a.doc_base[d] : 0;
+  for (int i = doc.lane; i < tl; i += 32) {
+    const size_t at = first + i;
+    int kind = 0;
+#pragma unroll
+    for (int f = 0; f < N_OPF; ++f) {
+      int32_t v;
+      if (!a.op_narrow)
+        v = a.op[f][at];
+      else if (f == O_KIND || f == O_CLIENT)
+        v = reinterpret_cast<const int8_t*>(a.op[f])[at];
+      else
+        v = reinterpret_cast<const int16_t*>(a.op[f])[at];
+      if (f == O_KIND) kind = v;
+      if (f == O_TSTART && a.op_narrow) v = kind == K_INSERT ? v + base : 0;
+      doc.opb[f * kOpTile + i] = v;
+    }
+  }
+  const int K = doc.K;
+  for (int j = doc.lane; j < tl * K; j += 32) {
+    const size_t at = first * K + j;
+    pvb[j] = a.op_narrow ? reinterpret_cast<const int16_t*>(a.pvals)[at]
+                         : a.pvals[at];
+  }
+}
+
+// The document's state into its working area with ordinary loads; returns
+// n and sets overflow.  st_mode 0 builds the empty state (the reference's
+// _cold_start: no state is read), 1 reads int32, 2 reads the int16 upload
+// encoding (the reference's _widen_state: tstart rebased on live slots,
+// I16_NOT_REMOVED back to NOT_REMOVED in the seq planes).
+__device__ int load_state_plain(const Doc& doc, const FoldArgs& a, int d,
+                                bool& overflow) {
+  const int S = doc.S, K = doc.K, lane = doc.lane;
+  if (a.st_mode == 0) {
+    for (int p = 0; p < N_FIXED; ++p) {
+      const int32_t fill = plane_fill(p);
+      for (int s = lane; s < S; s += 32) doc.at(p, s) = fill;
+    }
+    for (int i = lane; i < S * K; i += 32) doc.props[i] = kPropAbsent;
+    overflow = false;
+    return 0;
+  }
+  const bool narrow = a.st_mode == 2;
+  const size_t dS = (size_t)d * S;
+  const int n = narrow ? reinterpret_cast<const int16_t*>(a.n_in)[d]
+                       : a.n_in[d];
+  const int base = narrow ? a.doc_base[d] : 0;
+  for (int p = 0; p < N_FIXED; ++p) {
+    for (int s = lane; s < S; s += 32) {
+      int32_t v = narrow ? reinterpret_cast<const int16_t*>(a.st_in[p])[dS + s]
+                         : a.st_in[p][dS + s];
+      if (narrow) {
+        if (p == TSTART)
+          v = s < n ? v + base : 0;
+        else if (sentinel_plane(p) && v == kI16NotRemoved)
+          v = kNotRemoved;
+      }
+      doc.at(p, s) = v;
+    }
+  }
+  for (int i = lane; i < S * K; i += 32)
+    doc.props[i] = narrow
+        ? reinterpret_cast<const int16_t*>(a.props_in)[dS * K + i]
+        : a.props_in[dS * K + i];
+  overflow = a.ov_in[d] != 0;
+  return n;
+}
+
+// -- the fold+export epilogue -----------------------------------------------
+
+constexpr uint32_t kDigestSalt0 = 0x9E3779B9u;  // the digest's two lanes
+constexpr uint32_t kDigestSalt1 = 0x85EBCA6Bu;
+constexpr int kDigestPropsBase = 16;  // props column k salts at 16 + k
+
+// splitmix-style avalanche over uint32 (the reference's _mix_u32).
+__device__ __forceinline__ uint32_t mix_u32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Logical export row j at slot s: the exported slot planes (a.fields),
+// then the props rows, then the misc row [n, overflow, live_len, 0, ...];
+// the reference's _export_state before any byte packing.
+__device__ __forceinline__ int32_t export_value(const Doc& doc,
+                                                const FoldArgs& a, int j,
+                                                int s, int n, int base,
+                                                int live, bool overflow) {
+  if (j < a.n_fields) {
+    const int p = a.fields[j];
+    const int32_t v = doc.at(p, s);
+    if (p == TSTART) return s < n ? (a.i16 ? v - base : v) : 0;
+    if (a.i16 && sentinel_plane(p) && v == kNotRemoved)
+      return a.i8 ? kI8NotRemoved : kI16NotRemoved;
+    return v;
+  }
+  j -= a.n_fields;
+  if (j < a.n_props_rows) return doc.props[s * doc.K + j];
+  return s == 0 ? n : (s == 1 ? (int)overflow : (s == 2 ? live : 0));
+}
+
+// Write one document's transfer rows (and digest) from its working area.
+__device__ void export_doc(const Doc& doc, const FoldArgs& a, int d, int n,
+                           bool overflow) {
+  const int S = doc.S, K = doc.K, lane = doc.lane;
+  const int nl = min(n, S);
+  const int base = a.doc_base[d];
+  __syncwarp();  // the fold's last writes are seen by every lane
+  uint32_t live = 0, acc0 = 0, acc1 = 0;
+  for (int s = lane; s < nl; s += 32) {
+    if (doc.at(REM_SEQ, s) == kNotRemoved) live += doc.at(TLEN, s);
+    if (a.digest_out == nullptr) continue;
+    const uint32_t key = (uint32_t)s * 0x01000193u;
+#pragma unroll
+    for (int p = 0; p < N_FIXED; ++p) {
+      const uint32_t v = (uint32_t)(doc.at(p, s) - (p == TSTART ? base : 0));
+      acc0 += v * mix_u32(key + p + kDigestSalt0);
+      acc1 += v * mix_u32(key + p + kDigestSalt1);
+    }
+    for (int k = 0; k < K; ++k) {
+      // absent keys hash 0 (K-bucket invariance); set values shift by +1
+      const int32_t pv = doc.props[s * K + k];
+      const uint32_t v = pv != kPropAbsent ? (uint32_t)(pv + 1) : 0u;
+      acc0 += v * mix_u32(key + kDigestPropsBase + k + kDigestSalt0);
+      acc1 += v * mix_u32(key + kDigestPropsBase + k + kDigestSalt1);
+    }
+  }
+  const int live_len = (int)warp_sum(live);
+  const int R = a.ex_rows;
+  const size_t doc_at = (size_t)d * R * S;
+  if (!a.i16) {
+    int32_t* out = reinterpret_cast<int32_t*>(a.ex_out) + doc_at;
+    for (int r = 0; r < R; ++r)
+      for (int s = lane; s < S; s += 32)
+        out[(size_t)r * S + s] =
+            export_value(doc, a, r, s, n, base, live_len, overflow);
+  } else if (!a.i8) {
+    int16_t* out = reinterpret_cast<int16_t*>(a.ex_out) + doc_at;
+    for (int r = 0; r < R; ++r)
+      for (int s = lane; s < S; s += 32)
+        out[(size_t)r * S + s] = (int16_t)export_value(
+            doc, a, r, s, n, base, live_len, overflow);
+  } else {
+    // Row 0 is tstart (16 bits); row r >= 1 pairs logical rows 2r - 1
+    // (high byte) and 2r (low byte), a zero row padding an odd count; the
+    // misc values ride the separate [D, 4] leaf.
+    int16_t* out = reinterpret_cast<int16_t*>(a.ex_out) + doc_at;
+    const int logical = a.n_fields + a.n_props_rows;
+    for (int s = lane; s < S; s += 32)
+      out[s] = (int16_t)export_value(doc, a, 0, s, n, base, live_len,
+                                     overflow);
+    for (int r = 1; r < R; ++r) {
+      const int hi_row = 2 * r - 1, lo_row = 2 * r;
+      for (int s = lane; s < S; s += 32) {
+        const int32_t hi =
+            export_value(doc, a, hi_row, s, n, base, live_len, overflow);
+        const int32_t lo = lo_row < logical
+            ? export_value(doc, a, lo_row, s, n, base, live_len, overflow)
+            : 0;
+        out[(size_t)r * S + s] =
+            (int16_t)(uint16_t)(((hi & 0xFF) << 8) | (lo & 0xFF));
+      }
+    }
+    if (lane < 4)
+      a.misc_out[(size_t)d * 4 + lane] =
+          lane == 0 ? n : (lane == 1 ? (int)overflow
+                                     : (lane == 2 ? live_len : 0));
+  }
+  if (a.digest_out != nullptr) {
+    const uint32_t s0 = warp_sum(acc0), s1 = warp_sum(acc1);
+    if (lane < 2) {
+      const uint32_t salt = lane == 0 ? kDigestSalt0 : kDigestSalt1;
+      uint32_t acc = lane == 0 ? s0 : s1;
+      acc ^= mix_u32((uint32_t)n + salt);
+      acc ^= mix_u32((uint32_t)live_len * 3u + salt);
+      acc ^= overflow ? 0x5BD1E995u : 0u;
+      a.digest_out[(size_t)d * 2 + lane] = (int32_t)mix_u32(acc);
+    }
+  }
+}
+
+// -- the kernel ----------------------------------------------------------------
+
+// kGmem: the working area is the document's slice of args.scratch (else
+// shared memory); kExport: the fold+export entry (else state out).  Only
+// the state-out fold in shared memory moves rows with bulk copies.
+template <bool kGmem, bool kExport>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 mergetree_fold_kernel(FoldArgs args) {
   extern __shared__ __align__(16) int32_t smem[];
+  constexpr bool kBulk = !kGmem && !kExport;
   const int S = args.S, T = args.T, K = args.K;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int d = blockIdx.x * (blockDim.x >> 5) + warp;
   if (d >= args.D) return;  // nothing below waits on other warps
 
-  int32_t* mine = smem + (size_t)warp * doc_words(S, K);
+  int32_t* mine = kGmem ? args.scratch + (size_t)d * doc_words(S, K)
+                        : smem + (size_t)warp * doc_words(S, K);
   uint64_t* bar = reinterpret_cast<uint64_t*>(mine);
   Doc doc;
   doc.S = S;
@@ -479,14 +748,26 @@ mergetree_fold_kernel(FoldArgs args) {
     parity ^= 1;
   };
 
-  if (lane == 0) mbar_init(bar);
-  __syncwarp();
-  int n = args.n_in[d];
-  bool overflow = args.ov_in[d] != 0;
+  int n;
+  bool overflow;
+  if constexpr (kBulk) {
+    if (lane == 0) mbar_init(bar);
+    __syncwarp();
+    n = args.n_in[d];
+    overflow = args.ov_in[d] != 0;
+  } else {
+    n = load_state_plain(doc, args, d, overflow);
+  }
 
   for (int t0 = 0; t0 < T; t0 += kOpTile) {
     const int tl = min(kOpTile, T - t0);
-    load(t0, tl, t0 == 0);
+    if constexpr (kBulk) {
+      load(t0, tl, t0 == 0);
+    } else {
+      __syncwarp();  // the previous tile is consumed
+      load_ops_plain(doc, pvb, args, d, t0, tl);
+      __syncwarp();  // the tile (and the state) is seen by every lane
+    }
     for (int ti = 0; ti < tl; ++ti) {
       Row r;
       r.kind = doc.opb[O_KIND * kOpTile + ti];
@@ -502,6 +783,7 @@ mergetree_fold_kernel(FoldArgs args) {
       const int nl = min(n, S);  // live slots held
 
       const View w = take_view(doc, nl, r.ref, r.client, r.a, r.b, is_ins);
+      __syncwarp();  // v / cum are seen by every lane
       const bool cut_a = w.ia >= 0;
       const bool cut_b = !is_ins && w.ib >= 0 && !(w.ib == w.ia && r.b == r.a);
 
@@ -540,45 +822,93 @@ mergetree_fold_kernel(FoldArgs args) {
     }
   }
 
-  // State out: each lane sends one row back with a bulk copy.
-  fence_async_shared();
-  __syncwarp();
-  if (lane < N_FIXED) {
-    bulk_store(args.st_out[lane] + dS, doc.st + (size_t)lane * S,
-               plane_bytes);
-  } else if (lane == N_FIXED && K > 0) {
-    bulk_store(args.props_out + dS * K, doc.props, props_bytes);
-  } else if (lane == 31) {
-    args.n_out[d] = n;
-    args.ov_out[d] = overflow ? 1 : 0;
+  if constexpr (kExport) {
+    export_doc(doc, args, d, n, overflow);
+  } else if constexpr (kBulk) {
+    // State out: each lane sends one row back with a bulk copy.
+    fence_async_shared();
+    __syncwarp();
+    if (lane < N_FIXED) {
+      bulk_store(args.st_out[lane] + dS, doc.st + (size_t)lane * S,
+                 plane_bytes);
+    } else if (lane == N_FIXED && K > 0) {
+      bulk_store(args.props_out + dS * K, doc.props, props_bytes);
+    } else if (lane == 31) {
+      args.n_out[d] = n;
+      args.ov_out[d] = overflow ? 1 : 0;
+    }
+  } else {
+    // State out with plain coalesced copies.
+    __syncwarp();
+    for (int p = 0; p < N_FIXED; ++p)
+      for (int s = lane; s < S; s += 32) args.st_out[p][dS + s] = doc.at(p, s);
+    for (int i = lane; i < S * K; i += 32)
+      args.props_out[dS * K + i] = doc.props[i];
+    if (lane == 0) {
+      args.n_out[d] = n;
+      args.ov_out[d] = overflow ? 1 : 0;
+    }
   }
 }
 
-// Documents per block: the W of 1, 2, 4, 8 that keeps the most documents
-// resident per SM (smaller W on a tie), and the blocks per SM that gives.
+// The four builds of the kernel, by variant = kGmem | kExport << 1.
+const void* kernel_of(int variant) {
+  switch (variant) {
+    case 0: return reinterpret_cast<const void*>(
+        &mergetree_fold_kernel<false, false>);
+    case 1: return reinterpret_cast<const void*>(
+        &mergetree_fold_kernel<true, false>);
+    case 2: return reinterpret_cast<const void*>(
+        &mergetree_fold_kernel<false, true>);
+    default: return reinterpret_cast<const void*>(
+        &mergetree_fold_kernel<true, true>);
+  }
+}
+
+// Documents per block: in shared memory, the W of 1, 2, 4, 8 that keeps
+// the most documents resident per SM (smaller W on a tie), and the blocks
+// per SM that gives; in device memory, kGmemWarps and no shared memory.
 struct LaunchShape {
   int warps, blocks_per_sm;
   size_t bytes;
 };
 
-// Launch shapes already found, per (device, S, K), so the attribute calls
-// and occupancy queries run once per key and not on every launch.
+// Launch shapes already found, per (device, variant, S, K), so the
+// attribute calls and occupancy queries run once per key and not on every
+// launch.
 struct ShapeEntry {
-  int dev, S, K;
+  int dev, variant, S, K;
   LaunchShape shape;
 };
 std::mutex g_shapes_mu;
 std::vector<ShapeEntry> g_shapes;
 
-cudaError_t find_launch_shape(int dev, int S, int K, LaunchShape* out) {
+cudaError_t find_launch_shape(int dev, int variant, int S, int K,
+                              LaunchShape* out) {
+  const void* kernel = kernel_of(variant);
+  cudaError_t e;
+  if (variant & 1) {
+    // Device memory: no shared memory, so give the SM's memory to L1.
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             0);
+    if (e != cudaSuccess) return e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kGmemWarps * 32, 0);
+    if (e != cudaSuccess) return e;
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+    *out = LaunchShape{kGmemWarps, blocks, 0};
+    return cudaSuccess;
+  }
   int optin = 0;
-  cudaError_t e = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(mergetree_fold_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(mergetree_fold_kernel,
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
@@ -588,8 +918,8 @@ cudaError_t find_launch_shape(int dev, int S, int K, LaunchShape* out) {
     const size_t bytes = w * per_doc;
     if (bytes > (size_t)optin) break;
     int blocks = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, mergetree_fold_kernel, w * 32, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, w * 32,
+                                                      bytes);
     if (e != cudaSuccess) return e;
     if (blocks * w > best.blocks_per_sm * best.warps)
       best = LaunchShape{w, blocks, bytes};
@@ -599,50 +929,42 @@ cudaError_t find_launch_shape(int dev, int S, int K, LaunchShape* out) {
   return cudaSuccess;
 }
 
-cudaError_t launch_shape(int S, int K, LaunchShape* out) {
+cudaError_t launch_shape(int variant, int S, int K, LaunchShape* out) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   std::lock_guard<std::mutex> lock(g_shapes_mu);
   for (const ShapeEntry& c : g_shapes) {
-    if (c.dev == dev && c.S == S && c.K == K) {
+    if (c.dev == dev && c.variant == variant && c.S == S && c.K == K) {
       *out = c.shape;
       return cudaSuccess;
     }
   }
-  e = find_launch_shape(dev, S, K, out);
-  if (e == cudaSuccess) g_shapes.push_back(ShapeEntry{dev, S, K, *out});
+  e = find_launch_shape(dev, variant, S, K, out);
+  if (e == cudaSuccess)
+    g_shapes.push_back(ShapeEntry{dev, variant, S, K, *out});
   return e;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared-memory bytes one document needs for S slots and K props keys
-// (the wrapper refuses shapes above what one block can address).
-long long mergetree_fold_smem_bytes(int S, int K) {
-  return (long long)(doc_words(S, K) * sizeof(int32_t));
-}
-
-// The launch the kernel takes at (S, K) on the current device:
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor for it, with the
-// documents (warps) per block in *docs_per_block.  Returns blocks per SM,
-// or minus the CUDA error.
-int mergetree_fold_occupancy(int S, int K, int* docs_per_block) {
+template <bool kGmem, bool kExport>
+int launch(const FoldArgs& args, void* stream) {
+  if (args.D == 0) return 0;
   LaunchShape shape;
-  const cudaError_t e = launch_shape(S, K, &shape);
-  if (e != cudaSuccess) return -(int)e;
-  *docs_per_block = shape.warps;
-  return shape.blocks_per_sm;
+  const cudaError_t e =
+      launch_shape((kGmem ? 1 : 0) | (kExport ? 2 : 0), args.S, args.K,
+                   &shape);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (args.D + shape.warps - 1) / shape.warps;
+  mergetree_fold_kernel<kGmem, kExport>
+      <<<blocks, shape.warps * 32, shape.bytes, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
-// ptrs: the FoldArgs pointers in declaration order (9 op fields, pvals,
-// 12 state planes, props, n, overflow, then the same 15 outputs).
-// Returns cudaGetLastError() after the launch (0 = launched).
-int mergetree_fold(void* const* ptrs, int D, int S, int T, int K,
-                   void* stream) {
-  FoldArgs args;
+// The state-out entries' pointers: the FoldArgs pointers in declaration
+// order (9 op fields, pvals, 12 state planes, props, n, overflow, then the
+// same 15 outputs).
+FoldArgs state_out_args(void* const* ptrs, int D, int S, int T, int K) {
+  FoldArgs args = {};
   int i = 0;
   for (int f = 0; f < N_OPF; ++f) args.op[f] = (const int32_t*)ptrs[i++];
   args.pvals = (const int32_t*)ptrs[i++];
@@ -658,14 +980,91 @@ int mergetree_fold(void* const* ptrs, int D, int S, int T, int K,
   args.S = S;
   args.T = T;
   args.K = K;
-  if (D == 0) return 0;
+  args.st_mode = 1;  // int32 state in (the plain loads of device memory)
+  return args;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Working-area bytes one document needs for S slots and K props keys: its
+// shared memory, or its slice of the device-memory scratch.
+long long mergetree_fold_smem_bytes(int S, int K) {
+  return (long long)(doc_words(S, K) * sizeof(int32_t));
+}
+
+// The launch a build of the kernel takes at (S, K) on the current device:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor for it, with the documents
+// (warps) per block in *docs_per_block.  variant = device memory (1) |
+// fold+export (2).  Returns blocks per SM, or minus the CUDA error.
+int mergetree_fold_occupancy_of(int variant, int S, int K,
+                                int* docs_per_block) {
+  if (variant < 0 || variant > 3) return -(int)cudaErrorInvalidValue;
   LaunchShape shape;
-  const cudaError_t e = launch_shape(S, K, &shape);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (D + shape.warps - 1) / shape.warps;
-  mergetree_fold_kernel<<<blocks, shape.warps * 32, shape.bytes,
-                          (cudaStream_t)stream>>>(args);
-  return (int)cudaGetLastError();
+  const cudaError_t e = launch_shape(variant, S, K, &shape);
+  if (e != cudaSuccess) return -(int)e;
+  *docs_per_block = shape.warps;
+  return shape.blocks_per_sm;
+}
+
+// State out, shared memory.  Returns cudaGetLastError() after the launch
+// (0 = launched).
+int mergetree_fold(void* const* ptrs, int D, int S, int T, int K,
+                   void* stream) {
+  return launch<false, false>(state_out_args(ptrs, D, S, T, K), stream);
+}
+
+// State out, device memory: scratch is [D, mergetree_fold_smem_bytes / 4]
+// int32.
+int mergetree_fold_gmem(void* const* ptrs, int D, int S, int T, int K,
+                        int32_t* scratch, void* stream) {
+  FoldArgs args = state_out_args(ptrs, D, S, T, K);
+  args.scratch = scratch;
+  return launch<true, false>(args, stream);
+}
+
+// Fold + export.  ptrs: 9 op fields, pvals, 12 state planes, props, n,
+// overflow (null state pointers when cold), doc_base, the export buffer,
+// the misc leaf (i8 layouts, else null), the digest (or null), the scratch
+// (device memory, else null).  iargs: D, S, T, K, op_narrow, st_mode,
+// ex_rows, i16, i8, n_props_rows, n_fields, then the n_fields exported
+// plane indices.  gmem picks the placement.
+int mergetree_fold_export(void* const* ptrs, const int* iargs, int gmem,
+                          void* stream) {
+  FoldArgs args = {};
+  int i = 0;
+  for (int f = 0; f < N_OPF; ++f) args.op[f] = (const int32_t*)ptrs[i++];
+  args.pvals = (const int32_t*)ptrs[i++];
+  for (int p = 0; p < N_FIXED; ++p) args.st_in[p] = (const int32_t*)ptrs[i++];
+  args.props_in = (const int32_t*)ptrs[i++];
+  args.n_in = (const int32_t*)ptrs[i++];
+  args.ov_in = (const uint8_t*)ptrs[i++];
+  args.doc_base = (const int32_t*)ptrs[i++];
+  args.ex_out = ptrs[i++];
+  args.misc_out = (int32_t*)ptrs[i++];
+  args.digest_out = (int32_t*)ptrs[i++];
+  args.scratch = (int32_t*)ptrs[i++];
+  args.D = iargs[0];
+  args.S = iargs[1];
+  args.T = iargs[2];
+  args.K = iargs[3];
+  args.op_narrow = iargs[4];
+  args.st_mode = iargs[5];
+  args.ex_rows = iargs[6];
+  args.i16 = iargs[7];
+  args.i8 = iargs[8];
+  args.n_props_rows = iargs[9];
+  args.n_fields = iargs[10];
+  if (args.n_fields < 1 || args.n_fields > N_FIXED)
+    return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < args.n_fields; ++f) {
+    args.fields[f] = iargs[11 + f];
+    if (args.fields[f] < 0 || args.fields[f] >= N_FIXED)
+      return (int)cudaErrorInvalidValue;
+  }
+  return gmem ? launch<true, true>(args, stream)
+              : launch<false, true>(args, stream);
 }
 
 }  // extern "C"

@@ -8,11 +8,20 @@ reference's; the device half is rewritten in torch:
   reference's ``_apply_op`` / ``_split_at`` / ``_visible_len`` over
   ``[D, S]`` planes with ``(D, 1)`` per-op columns, one Python step per
   op row.  It is the CPU path and the card's yardstick for the kernel;
-- ``ops.fold_cuda.fold`` — the hand-written Hopper kernel (CUDA tensors)
-  or ``fold_reference`` (CPU tensors);
-- ``cold_start`` / ``export_state`` — the empty initial state and the
-  int32 full export layout ``[D, 12 + K + 1, S]``;
-- ``replay_export`` / ``replay_mergetree_batch`` — the entry points.
+- ``ops.fold_cuda.fold`` / ``fold_export`` — the hand-written Hopper
+  kernel (CUDA tensors) or the plain versions (CPU tensors);
+- the transfer encodings, as the reference has them: the narrow uploads
+  (``narrow_ops_for_upload`` / ``narrow_state_for_upload``, host numpy)
+  and their device decode (``_widen_ops`` / ``_widen_state``), the export
+  layouts (``_export_state``: int32, int16, int8 pairs, with obliterate /
+  overlap / props rows elided by ``_export_flags``) and the state digest
+  (``_doc_digests``), each in plain PyTorch; ``export_reference`` chains
+  them around ``fold_reference``, the plain version of the kernel's
+  fold+export build;
+- the host side of the export: ``widen_export`` / ``widen_export_native``
+  back to the canonical int32 layout, then ``summaries_from_export``;
+- ``replay_export`` / ``replay_mergetree_batch`` — the entry points
+  (``ops.pipeline.pipelined_mergetree_replay`` is the chunked one).
 
 The state layout is the reference's at every public function: ``MTState``
 holds twelve ``[D, S]`` int32 planes, ``props [D, S, K]``, ``n [D]`` int32
@@ -42,9 +51,13 @@ PROP_NOT_TOUCHED = -2  # annotate op does not touch this key
 K_NOOP, K_INSERT, K_REMOVE, K_ANNOTATE, K_OBLITERATE = 0, 1, 2, 3, 4
 
 _NR = int(NOT_REMOVED)
-#: value bounds behind the pack-time ``i16_ok``/``i8_ok`` facts (kept for
-#: meta parity with the reference; the narrow layouts are a later slice)
+#: the strict value bound behind the pack-time ``i16_ok`` fact, and the
+#: sentinel NOT_REMOVED becomes in int16 transfer encodings
+I16_NOT_REMOVED = np.int16(np.iinfo(np.int16).max)
 I16_LIMIT = int(np.iinfo(np.int16).max) - 1
+#: int8 pair packing (``i8_ok``): every exported value other than tstart and
+#: misc fits a signed byte; NOT_REMOVED rides as 127
+I8_NOT_REMOVED = np.int32(127)
 I8_LIMIT = 126
 
 
@@ -89,6 +102,16 @@ EXPORT_SLOT_FIELDS = (
     "rem_seq", "rem_client", "rem2_seq", "rem2_client",
     "ob1_seq", "ob1_client", "ob2_seq", "ob2_client",
 )
+#: the slot fields with no obliterate content — the export layout when a
+#: chunk provably carries no obliterates (``meta["ob_rows"]`` False)
+NON_OB_SLOT_FIELDS = EXPORT_SLOT_FIELDS[:8]
+#: the obliterate rows elided from such exports, with their sentinel fills
+OB_SLOT_FIELDS = EXPORT_SLOT_FIELDS[8:]
+#: the overlap-remover rows, elided (``meta["ov_rows"]`` False) when every
+#: op rides a fully sequential view and no base record carries "ro"
+OV_SLOT_FIELDS = ("rem2_seq", "rem2_client")
+#: rows holding seqs with the NOT_REMOVED sentinel (narrow remap set)
+SENTINEL_SEQ_FIELDS = ("rem_seq", "rem2_seq", "ob1_seq", "ob2_seq")
 #: the nine scalar op fields (``pvals`` rides beside them)
 OP_FIELDS = MTOps._fields[:9]
 
@@ -347,40 +370,436 @@ def cold_start(ops: MTOps, S: int) -> MTState:
     )
 
 
-def export_state(final: MTState) -> torch.Tensor:
-    """``[D, 12 + K + 1, S]`` int32 view of everything summary extraction
-    and interval replay read from the final state: the twelve slot planes
-    (``tstart`` zeroed on dead slots, so export bytes are deterministic),
-    the K props planes, and a misc row ``[n, overflow, live_len, 0...]``.
-    Byte-compatible with the reference's full int32 layout
-    (``_export_state`` with no narrowing and no row elision)."""
+# ---------------------------------------------------------------------------
+# Device half: transfer encodings, export layouts and the state digest
+# ---------------------------------------------------------------------------
+
+
+def _export_fields(ob_rows: bool, ov_rows: bool):
+    fields = list(EXPORT_SLOT_FIELDS if ob_rows else NON_OB_SLOT_FIELDS)
+    if not ov_rows:
+        fields = [f for f in fields if f not in OV_SLOT_FIELDS]
+    return fields
+
+
+def _export_flags(meta: dict):
+    """The transfer-layout facts ``(i16, ob_rows, ov_rows, i8,
+    props_rows)`` BOTH sides of the export use (dispatch builds the
+    buffer, extraction widens it): one derivation point, so they can
+    never disagree.  The reference forces the props rows on when its
+    ``FF_PALLAS_FOLD`` selects the Pallas fold; the port reads no
+    environment, so ``props_rows`` is ``has_props`` (the reference with
+    the variable unset)."""
+    i16 = bool(meta.get("i16_ok"))
+    return (
+        i16,
+        bool(meta.get("ob_rows", True)),
+        bool(meta.get("ov_rows", True)),
+        i16 and bool(meta.get("i8_ok")),
+        bool(meta.get("has_props", True)),
+    )
+
+
+def _layout_rows(ob_rows: bool, ov_rows: bool, i8: bool,
+                 n_props_rows: int) -> int:
+    fields = _export_fields(ob_rows, ov_rows)
+    if i8:
+        n_bytes = len(fields) - 1 + n_props_rows
+        return 1 + (n_bytes + 1) // 2  # misc rides the separate output
+    return len(fields) + n_props_rows + 1
+
+
+def export_layout_rows(meta: dict) -> int:
+    """Row count of the transfer buffer ``replay_export`` emits for this
+    packed chunk's layout facts (elisions + byte packing)."""
+    _i16, ob_rows, ov_rows, i8, props_rows = _export_flags(meta)
+    return _layout_rows(ob_rows, ov_rows, i8,
+                        meta.get("props_K", 1) if props_rows else 0)
+
+
+def _export_state(final: MTState, doc_base: Optional[torch.Tensor] = None,
+                  i16: bool = False, ob_rows: bool = True,
+                  ov_rows: bool = True, i8: bool = False,
+                  props_rows: bool = True):
+    """``[D, rows, S]`` view of everything summary extraction and interval
+    replay read from the final state, in one of the reference's transfer
+    layouts (its ``_export_state``, in plain PyTorch):
+
+    - int32: the exported slot planes (``tstart`` zeroed on dead slots,
+      so export bytes are deterministic), the props planes, and a misc
+      row ``[n, overflow, live_len, 0...]``;
+    - ``i16``: int16, with live ``tstart`` rebased by ``doc_base`` and
+      NOT_REMOVED as ``I16_NOT_REMOVED``;
+    - ``i8`` (with ``i16``): every row after ``tstart`` paired into one
+      int16 lane (``(a & 0xFF) << 8 | (b & 0xFF)``, NOT_REMOVED as 127),
+      and the misc values as a separate ``[D, 4]`` int32 leaf: returns
+      ``(rows, misc)``;
+    - ``ob_rows`` / ``ov_rows`` / ``props_rows`` False elide the
+      obliterate, overlap-remover and props rows.
+
+    Every layout widens back to the int32 one (``widen_export``)."""
+    i8 = i8 and i16  # byte packing presupposes the int16 transforms
     D, S = final.tlen.shape
-    slot = torch.arange(S, device=final.tlen.device)[None, :]
+    K = final.props.shape[2]
+    dev = final.tlen.device
+    slot = torch.arange(S, device=dev)[None, :]
     active = slot < final.n[:, None]
     live = torch.where(active & (final.rem_seq == _NR), final.tlen, 0).sum(
         dim=1, dtype=torch.int32)
-    misc = torch.zeros((D, S), dtype=torch.int32, device=final.tlen.device)
+    misc = torch.zeros((D, S), dtype=torch.int32, device=dev)
     misc[:, 0] = final.n
     misc[:, 1] = final.overflow.to(torch.int32)
     misc[:, 2] = live
-    rows = [torch.where(active, final.tstart, 0)]
-    rows += [getattr(final, f) for f in EXPORT_SLOT_FIELDS[1:]]
-    rows += list(final.props.permute(2, 0, 1))
+    named = {"tstart": torch.where(active, final.tstart, 0)}
+    fields = _export_fields(ob_rows, ov_rows)
+    if i16:
+        named["tstart"] = torch.where(
+            active, final.tstart - doc_base[:, None], 0)
+        sentinel = int(I8_NOT_REMOVED) if i8 else int(I16_NOT_REMOVED)
+        for f in SENTINEL_SEQ_FIELDS:
+            if f in fields:
+                val = getattr(final, f)
+                named[f] = torch.where(val == _NR, sentinel, val)
+    rows = [named.get(f, getattr(final, f)) for f in fields]
+    if props_rows:
+        rows += [final.props[:, :, k] for k in range(K)]
+    if i8:
+        byte_rows = rows[1:]
+        if len(byte_rows) % 2:
+            byte_rows.append(torch.zeros((D, S), dtype=torch.int32,
+                                         device=dev))
+        packed = [((byte_rows[i] & 0xFF) << 8) | (byte_rows[i + 1] & 0xFF)
+                  for i in range(0, len(byte_rows), 2)]
+        out = torch.stack([rows[0]] + packed, dim=1).to(torch.int16)
+        return out, misc[:, :4].contiguous()
     rows.append(misc)
-    return torch.stack(rows, dim=1).to(torch.int32)
+    out = torch.stack(rows, dim=1).to(torch.int32)
+    return out.to(torch.int16) if i16 else out
 
 
-def replay_export(state: Optional[MTState], ops: MTOps,
-                  S: Optional[int] = None) -> torch.Tensor:
-    """Fold a packed chunk and export it: ``state=None`` builds the cold
-    start (``S`` slots) on the ops' device.  The fold is
-    ``fold_cuda.fold``: the hand-written kernel on CUDA tensors, the plain
-    fold on CPU tensors.  Returns the int32 full export on that device."""
-    from .fold_cuda import fold
+def export_state(final: MTState) -> torch.Tensor:
+    """The int32 full export ``[D, 12 + K + 1, S]`` (``_export_state`` with
+    no narrowing and no row elision)."""
+    return _export_state(final)
 
-    if state is None:
-        state = cold_start(ops, int(S))
-    return export_state(fold(state, ops))
+
+#: fixed per-plane salt ids for the digest mix (the slot planes in export
+#: order, props column k at 16 + k): the digest reads the canonical final
+#: state, never the transfer buffer, so layouts cannot perturb it
+_DIGEST_PROPS_BASE = 16
+_DIGEST_SALTS = (0x9E3779B9, 0x85EBCA6B)
+_U32 = 0xFFFFFFFF
+
+
+def _mix_u32(x: torch.Tensor) -> torch.Tensor:
+    """splitmix-style avalanche over uint32 values held in int64 (the
+    reference's ``_mix_u32``: wrap-around multiplies and logical shifts,
+    here as int64 arithmetic masked to 32 bits)."""
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _U32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & _U32
+    return x ^ (x >> 16)
+
+
+def _doc_digests(final: MTState, doc_base: torch.Tensor) -> torch.Tensor:
+    """``[D, 2]`` int32 digest of each document's canonical final state,
+    bit for bit the reference's ``_doc_digests``: only live slots count,
+    ``tstart`` enters relative to the document's arena base, a props key
+    the document never set adds zero (set values hash + 1), and ``n``,
+    ``live_len`` and ``overflow`` are mixed in; two independently salted
+    32-bit lanes."""
+    D, S = final.tlen.shape
+    K = final.props.shape[2]
+    dev = final.tlen.device
+    slot = torch.arange(S, device=dev, dtype=torch.int64)[None, :]
+    active = slot < final.n[:, None]
+    live_len = torch.where(active & (final.rem_seq == _NR), final.tlen,
+                           0).sum(dim=1, dtype=torch.int64)
+    base = doc_base.to(torch.int64)[:, None]
+
+    def weighted(v, salt_id, salt):
+        w = _mix_u32((slot * 0x01000193 + salt_id + salt) & _U32)
+        return ((v & _U32) * w & _U32).sum(dim=1)
+
+    lanes = []
+    for salt in _DIGEST_SALTS:
+        acc = torch.zeros((D,), dtype=torch.int64, device=dev)
+        for i, f in enumerate(EXPORT_SLOT_FIELDS):
+            plane = getattr(final, f).to(torch.int64)
+            if f == "tstart":
+                plane = plane - base
+            acc = acc + weighted(torch.where(active, plane, 0), i, salt)
+        for k in range(K):
+            plane = final.props[:, :, k].to(torch.int64)
+            v = torch.where(active & (plane != PROP_ABSENT), plane + 1, 0)
+            acc = acc + weighted(v, _DIGEST_PROPS_BASE + k, salt)
+        acc = acc & _U32
+        acc = acc ^ _mix_u32((final.n.to(torch.int64) + salt) & _U32)
+        acc = acc ^ _mix_u32((live_len * 3 + salt) & _U32)
+        acc = acc ^ torch.where(final.overflow, 0x5BD1E995, 0)
+        lanes.append(_mix_u32(acc))
+    out = torch.stack(lanes, dim=-1)
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+#: upload-side narrow dtypes (the h2d transfer encoding of
+#: ``narrow_ops_for_upload``), per field
+_UPLOAD_NARROW_DTYPES = {
+    "kind": np.int8, "client": np.int8,
+    "seq": np.int16, "ref_seq": np.int16, "min_seq": np.int16,
+    "a": np.int16, "b": np.int16, "tstart": np.int16, "tlen": np.int16,
+    "pvals": np.int16,
+}
+
+
+#: the narrow upload encoding of each field, as torch dtypes: the op
+#: stream per ``_UPLOAD_NARROW_DTYPES``, the warm state int16 but
+#: ``overflow``
+_UPLOAD_NARROW_TORCH = {
+    MTOps: {f: torch.int8 if np.dtype(dt) == np.int8 else torch.int16
+            for f, dt in _UPLOAD_NARROW_DTYPES.items()},
+    MTState: {f: torch.bool if f == "overflow" else torch.int16
+              for f in MTState._fields},
+}
+
+
+def upload_encoding(x) -> bool:
+    """Whether an ``MTOps`` or ``MTState`` of tensors is in the narrow
+    upload encoding (True: exactly what ``narrow_ops_for_upload`` /
+    ``narrow_state_for_upload`` emit) or wide int32 (False).  ``seq`` /
+    ``ins_seq`` names the encoding; any other dtype there, or a field off
+    that encoding, raises ``TypeError``: only the exact narrow encoding
+    was rebased, so nothing else may be un-rebased.  Every decode (the
+    plain ``_widen_ops`` / ``_widen_state`` and the kernel's prologue)
+    checks through here."""
+    kind = type(x)
+    key, what, narrower = (
+        ("seq", "op stream", "narrow_ops_for_upload") if kind is MTOps
+        else ("ins_seq", "state", "narrow_state_for_upload"))
+    encoding = getattr(x, key).dtype
+    if encoding == torch.int16:
+        want = _UPLOAD_NARROW_TORCH[kind]
+    elif encoding == torch.int32:
+        want = {f: torch.bool if f == "overflow" else torch.int32
+                for f in kind._fields}
+    else:
+        raise TypeError(
+            f"{what} has {key} dtype {encoding}; expected int32 (wide) or "
+            f"the int16 {narrower} encoding")
+    bad = [f for f in kind._fields if getattr(x, f).dtype != want[f]]
+    if bad:
+        raise TypeError(f"{what} fields {bad} do not match the {encoding} "
+                        f"encoding of {key}")
+    return encoding == torch.int16
+
+
+def narrow_ops_for_upload(ops: MTOps, meta: dict) -> MTOps:
+    """Narrow a packed numpy op stream for the h2d link: int16 rows (int8
+    for kind/client), with insert ``tstart`` rebased per document
+    (``tstart - doc_base[d]``).  The device widens it back
+    (``_widen_ops``, or the kernel's prologue), so this is purely a
+    transfer encoding.
+
+    Applies only when the chunk's ``i16_ok`` fact holds AND a direct
+    bounds re-check of every field passes: any violation falls back to
+    the wide upload, never truncates.  Streams already on a device, or
+    already narrow, pass through unchanged.  (The reference also reads
+    ``FF_UPLOAD_NARROW``; the port reads no environment and behaves as
+    the reference with it unset.)"""
+    if (not meta.get("i16_ok")
+            or not isinstance(ops.kind, np.ndarray)
+            or ops.seq.dtype != np.int32):
+        return ops
+    doc_base = np.asarray(meta["doc_base"], np.int32)
+    is_ins = ops.kind == K_INSERT
+    # Non-insert rows must carry tstart == 0 (pack invariant; the fold
+    # reads op tstart only under is_ins) for the rebase to round-trip.
+    if int(np.abs(np.where(is_ins, 0, ops.tstart)).max(initial=0)) != 0:
+        return ops
+    rebased = np.where(is_ins, ops.tstart - doc_base[:, None], 0)
+    narrow = {"tstart": rebased}
+    for f in MTOps._fields:
+        if f != "tstart":
+            narrow[f] = getattr(ops, f)
+    for f, dt in _UPLOAD_NARROW_DTYPES.items():
+        info = np.iinfo(dt)
+        v = narrow[f]
+        if not (int(v.min(initial=0)) >= info.min
+                and int(v.max(initial=0)) <= info.max):
+            return ops  # bounds re-check failed → wide upload
+    return MTOps(**{f: narrow[f].astype(_UPLOAD_NARROW_DTYPES[f])
+                    for f in MTOps._fields})
+
+
+def narrow_state_for_upload(state: MTState, meta: dict) -> MTState:
+    """Narrow a warm chunk's numpy base state for the h2d link: int16
+    planes with the NOT_REMOVED sentinel remapped to ``I16_NOT_REMOVED``
+    and live-slot ``tstart`` rebased per document (dead slots are zero by
+    the pack invariant, re-checked here); ``props`` and ``n`` narrow under
+    the same bound, ``overflow`` stays bool.  Any bounds violation (a real
+    seq equal to the remapped sentinel included) falls back to the wide
+    upload."""
+    if (not meta.get("i16_ok")
+            or not isinstance(state.tstart, np.ndarray)
+            or state.ins_seq.dtype != np.int32):
+        return state
+    doc_base = np.asarray(meta["doc_base"], np.int32)
+    S = state.tstart.shape[1]
+    live = np.arange(S, dtype=np.int32)[None, :] < state.n[:, None]
+    if int(np.abs(np.where(live, 0, state.tstart)).max(initial=0)) != 0:
+        return state  # dead slots must be zero for the rebase round trip
+    info = np.iinfo(np.int16)
+    narrow = {}
+    for f in EXPORT_SLOT_FIELDS:
+        v = getattr(state, f)
+        if f == "tstart":
+            v = np.where(live, v - doc_base[:, None], 0)
+        elif f in SENTINEL_SEQ_FIELDS:
+            # Real values must stay STRICTLY below the remapped sentinel
+            # (I16_LIMIT): a genuine 32767 would widen back as NOT_REMOVED
+            # and resurrect a removed segment.
+            reals = np.where(v == NOT_REMOVED, 0, v)
+            if int(reals.max(initial=0)) > I16_LIMIT:
+                return state
+            v = np.where(v == NOT_REMOVED, np.int32(I16_NOT_REMOVED), v)
+        if not (info.min <= int(v.min(initial=0))
+                and int(v.max(initial=0)) <= info.max):
+            return state
+        narrow[f] = v.astype(np.int16)
+    if not (int(state.props.min(initial=0)) >= info.min
+            and int(state.props.max(initial=0)) <= info.max
+            and int(state.n.max(initial=0)) <= info.max):
+        return state
+    return MTState(
+        **narrow,
+        props=state.props.astype(np.int16),
+        n=state.n.astype(np.int16),
+        overflow=state.overflow,
+    )
+
+
+def _widen_ops(ops: MTOps, doc_base: torch.Tensor) -> MTOps:
+    """Inverse of ``narrow_ops_for_upload`` on tensors (identity on int32
+    streams): a cast per field plus the insert-tstart un-rebase.  Only the
+    exact encoding the narrower emits (int16 seq rows) is un-rebased; any
+    other encoding was never rebased, so ``upload_encoding`` refuses it."""
+    if not upload_encoding(ops):
+        return ops
+    w = {f: getattr(ops, f).to(torch.int32) for f in MTOps._fields}
+    w["tstart"] = torch.where(w["kind"] == K_INSERT,
+                              w["tstart"] + doc_base[:, None], 0)
+    return MTOps(**w)
+
+
+def _widen_state(state: MTState, doc_base: torch.Tensor) -> MTState:
+    """Inverse of ``narrow_state_for_upload`` on tensors (identity on int32
+    states); refuses unknown encodings like ``_widen_ops``."""
+    if not upload_encoding(state):
+        return state
+    w = {f: getattr(state, f).to(torch.int32) for f in EXPORT_SLOT_FIELDS}
+    n = state.n.to(torch.int32)
+    S = state.tstart.shape[1]
+    live = torch.arange(S, device=n.device)[None, :] < n[:, None]
+    w["tstart"] = torch.where(live, w["tstart"] + doc_base[:, None], 0)
+    for f in SENTINEL_SEQ_FIELDS:
+        w[f] = torch.where(w[f] == int(I16_NOT_REMOVED), _NR, w[f])
+    return MTState(**w, props=state.props.to(torch.int32), n=n,
+                   overflow=state.overflow)
+
+
+def export_reference(state: Optional[MTState], ops: MTOps,
+                     doc_base: torch.Tensor, layout, digest: bool = False,
+                     S: Optional[int] = None):
+    """The plain fold+export on whatever device the tensors lie: decode
+    (``_widen_ops`` / ``_widen_state``, or ``cold_start`` when ``state``
+    is None), ``fold_reference``, ``_export_state`` in ``layout`` (the
+    ``_export_flags`` tuple) and, with ``digest``, ``_doc_digests`` as the
+    last leaf.  The CPU path of ``fold_cuda.fold_export`` and the card's
+    yardstick for the kernel's fold+export build."""
+    ops = _widen_ops(ops, doc_base)
+    state = cold_start(ops, int(S)) if state is None \
+        else _widen_state(state, doc_base)
+    return export_final(fold_reference(state, ops), doc_base, layout, digest)
+
+
+def export_final(final: MTState, doc_base: torch.Tensor, layout,
+                 digest: bool = False):
+    """The export leaves of a folded state: ``_export_state`` in ``layout``
+    (the ``_export_flags`` tuple) and, with ``digest``, ``_doc_digests``
+    as the last leaf (the structure ``split_export_digest`` takes apart)."""
+    ex = _export_state(final, doc_base, *layout)
+    if not digest:
+        return ex
+    dig = _doc_digests(final, doc_base)
+    return ex + (dig,) if isinstance(ex, tuple) else (ex, dig)
+
+
+def split_export_digest(export, digested: bool):
+    """``(core, digest_or_None)`` for a ``replay_export`` handle: with
+    ``digest=True`` the digest rides as the LAST leaf; the core keeps the
+    exact shape the non-digest path produces (bare buffer, or
+    ``(rows, misc)`` for i8 layouts)."""
+    if not digested:
+        return export, None
+    if not (isinstance(export, tuple) and len(export) >= 2):
+        raise ValueError("a digested export is a tuple with the digest last")
+    core = export[0] if len(export) == 2 else export[:-1]
+    return core, export[-1]
+
+
+def _leaf_to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.cpu().numpy()
+    return np.asarray(leaf)
+
+
+def export_to_numpy(export):
+    """Fetch an export to numpy: a leaf, or a tuple of leaves for the i8
+    layout's ``(rows, misc)`` pair (and a digest).  A handle that fetches
+    itself (the pipeline's ``DeviceExport``) is asked to."""
+    fetch = getattr(export, "to_numpy", None)
+    if fetch is not None:
+        return fetch()
+    if isinstance(export, tuple):
+        return tuple(_leaf_to_numpy(x) for x in export)
+    return _leaf_to_numpy(export)
+
+
+def replay_export(state: Optional[MTState], ops: MTOps, meta: dict,
+                  S: Optional[int] = None, digest: bool = False,
+                  doc_base: Optional[torch.Tensor] = None,
+                  device="cuda"):
+    """Fold a packed chunk and export it in the layout its facts allow
+    (``_export_flags``): the reference's ``replay_export``.  ``state=None``
+    folds a cold chunk of ``S`` slots (its empty state built on the
+    device, no zero upload).  Numpy inputs are narrowed for the upload
+    (``narrow_ops_for_upload`` / ``narrow_state_for_upload``) and copied
+    to ``device``; tensors already on a device are used as they are (and
+    name the device).  ``digest=True`` adds the ``[D, 2]`` state digest as
+    the last leaf (``split_export_digest``).  ``doc_base`` (a tensor on the
+    device) must equal ``meta["doc_base"]``; by default it is that when
+    the layout or the digest reads it, zeros otherwise.
+
+    The fold+export is ``fold_cuda.fold_export``: the kernel on the card,
+    the plain ``export_reference`` on the CPU.  Returns the leaves on that
+    device, asynchronously on the card."""
+    from ..convert import tensors_to
+    from .fold_cuda import fold_export
+
+    layout = _export_flags(meta)
+    dev = ops.kind.device if isinstance(ops.kind, torch.Tensor) \
+        else resolve_device(device)
+    D = ops.kind.shape[0]
+    if doc_base is None:
+        # The digest rebases tstart per document even on int32 layouts, so
+        # an unchanged document digests the same across repacks.
+        base = meta["doc_base"] if (layout[0] or digest) else \
+            np.zeros((D,), np.int32)
+        doc_base = torch.from_numpy(
+            np.ascontiguousarray(base, np.int32)).to(dev)
+    ops = tensors_to(narrow_ops_for_upload(ops, meta), dev)
+    if state is not None:
+        state = tensors_to(narrow_state_for_upload(state, meta), dev)
+    return fold_export(state, ops, doc_base, layout, digest, S=S)
 
 
 def state_dict_from_export(export_np: np.ndarray) -> dict:
@@ -505,9 +924,9 @@ def pack_mergetree_batch(docs: Sequence[MergeTreeDocInput]):
 
     Returns (state_arrays, op_arrays, meta) where meta carries everything
     needed to rebuild canonical summaries from the final device state.
-    The arrays and meta equal the reference's ``pack_mergetree_batch``
-    (the i16/i8/row-elision facts are computed for parity; this slice's
-    export is always the int32 full layout).
+    The arrays and meta equal the reference's ``pack_mergetree_batch``;
+    the i16/i8/row-elision facts pick the transfer layouts
+    (``_export_flags``, ``narrow_ops_for_upload``).
     """
     prop_keys = Interner()
     values = Interner()
@@ -863,15 +1282,175 @@ def oracle_fallback_summary(doc: MergeTreeDocInput) -> SummaryTree:
     return replica.summarize()
 
 
-def summaries_from_export(meta, export_np: np.ndarray,
-                          stats: Optional[dict] = None) -> List[SummaryTree]:
-    """Canonical summaries for a whole chunk from the int32 full export
-    buffer (``export_state``'s layout, downloaded to numpy).
+def _widen_desc(ob_rows: bool, ov_rows: bool, i8: bool, props_rows: bool,
+                n_props: int):
+    """The per-canonical-row descriptor table ``oppack_widen`` consumes:
+    [mode, arg, fill, flags] x (13 + K) rows, in ``widen_export``'s field
+    order (the same ``_export_fields`` derivation)."""
+    fields = _export_fields(ob_rows, ov_rows)
 
-    Bodies come from the C++ extractor (one pass over the buffer) when
-    liboppack is available, else the per-slot Python extraction; interval
-    blobs and oracle-fallback docs take the host paths either way.
-    ``stats`` (optional dict) accumulates ``device_docs`` /
+    def src_of(f: str):
+        if not i8:
+            return 1, fields.index(f)                       # ROW16
+        if f == "tstart":
+            return 1, 0                                     # 16-bit lane
+        i = fields.index(f) - 1                             # byte index
+        return 2, (1 + i // 2) * 2 + (i % 2)                # PAIR8
+
+    desc = []
+    for f in EXPORT_SLOT_FIELDS:
+        if f in fields:
+            mode, arg = src_of(f)
+            flags = (1 if f in SENTINEL_SEQ_FIELDS else 0) \
+                | (2 if f == "tstart" else 0)
+            desc.append((mode, arg, 0, flags))
+        else:
+            fill = int(NOT_REMOVED) if f.endswith("_seq") else -1
+            desc.append((0, 0, fill, 0))
+    for k in range(n_props):
+        if props_rows:
+            if i8:
+                i = len(fields) - 1 + k
+                desc.append((2, (1 + i // 2) * 2 + (i % 2), 0, 0))
+            else:
+                desc.append((1, len(fields) + k, 0, 0))
+        else:
+            desc.append((0, 0, int(PROP_ABSENT), 0))
+    if i8:
+        desc.append((3, 0, 0, 0))                           # stitched misc
+    else:
+        n_src = len(fields) + (n_props if props_rows else 0) + 1
+        desc.append((1, n_src - 1, 0, 0))                   # misc row
+    return np.asarray(desc, np.int32).reshape(-1)
+
+
+def widen_export_native(export_np, doc_base, ob_rows: bool, ov_rows: bool,
+                        i8: bool, n_props: int, props_rows: bool):
+    """C++ single-pass widen (``oppack_widen`` in ``csrc/oppack.cpp``) of
+    a narrow export buffer to the canonical ``[D, 13 + K, S]`` int32
+    layout, byte-identical to ``widen_export``.  Returns None when it does
+    not apply (already int32, or no native library)."""
+    from .native_pack import load_library
+
+    misc_np = None
+    if isinstance(export_np, tuple):
+        export_np, misc_np = export_np
+    if export_np.dtype != np.int16:
+        return None
+    lib = load_library()
+    if lib is None:
+        return None
+    D, R_src, S = export_np.shape
+    desc = _widen_desc(ob_rows, ov_rows, i8, props_rows, n_props)
+    R_canon = len(desc) // 4
+    dst = np.empty((D, R_canon, S), np.int32)
+    src = np.ascontiguousarray(export_np, np.int16)
+    if i8:
+        if misc_np is None:
+            raise ValueError("an i8 widen needs the misc leaf")
+        misc = np.ascontiguousarray(misc_np, np.int16)
+        misc_ptr, misc_cols = misc.ctypes.data, misc.shape[1]
+    else:
+        misc = None
+        misc_ptr, misc_cols = None, 0
+    base = None if doc_base is None else \
+        np.ascontiguousarray(doc_base, np.int32)
+    sentinel_src = int(I8_NOT_REMOVED) if i8 else int(I16_NOT_REMOVED)
+    rc = lib.oppack_widen(
+        src, D, S, R_src, R_canon, misc_ptr, misc_cols, desc,
+        None if base is None else base.ctypes.data,
+        sentinel_src, int(NOT_REMOVED), dst,
+    )
+    if rc != 0:
+        raise ValueError("oppack_widen: malformed narrow export")
+    return dst
+
+
+def widen_export(export_np,
+                 doc_base: Optional[np.ndarray],
+                 ob_rows: bool = True, ov_rows: bool = True,
+                 i8: bool = False,
+                 n_props: Optional[int] = None,
+                 props_rows: bool = True) -> np.ndarray:
+    """Undo the export transfer transforms on the host, always returning
+    the canonical full int32 layout: unpack int8 pairs and stitch the misc
+    leaf back into a row (``i8``; needs ``n_props``, the padded props
+    width), widen int16 to int32, restore NOT_REMOVED, re-add per-document
+    arena bases on live slots, and reinsert elided obliterate / overlap /
+    props rows with their fills.  int32 full-layout buffers pass through
+    untouched."""
+    misc_np = None
+    if isinstance(export_np, tuple):
+        export_np, misc_np = export_np
+    fields = _export_fields(ob_rows, ov_rows)
+    if export_np.dtype == np.int32:
+        out = export_np
+    else:
+        if i8:
+            if n_props is None or misc_np is None:
+                raise ValueError("an i8 widen needs the props width and "
+                                 "the misc leaf")
+            u = export_np.astype(np.uint16)
+            n_bytes = len(fields) - 1 + (n_props if props_rows else 0)
+            rows = [export_np[:, 0, :].astype(np.int32)]
+            for i in range(n_bytes):
+                pair = u[:, 1 + i // 2, :]
+                half = (pair >> 8) if i % 2 == 0 else (pair & 0xFF)
+                rows.append(half.astype(np.uint8).astype(np.int8)
+                            .astype(np.int32))
+            D, _R, S = export_np.shape
+            misc_row = np.zeros((D, S), np.int32)
+            misc_row[:, :misc_np.shape[1]] = misc_np
+            rows.append(misc_row)
+            out = np.stack(rows, axis=1)
+        else:
+            out = export_np.astype(np.int32)
+        sentinel = int(I8_NOT_REMOVED) if i8 else int(I16_NOT_REMOVED)
+        for f in SENTINEL_SEQ_FIELDS:
+            if f not in fields:
+                continue
+            row = out[:, fields.index(f), :]
+            row[row == sentinel] = NOT_REMOVED
+        if doc_base is not None:
+            # Re-add the per-doc arena base to live slots only (dead slots
+            # were zeroed on the device and stay zero, as in int32).
+            n = out[:, -1, 0]
+            active = np.arange(out.shape[2])[None, :] < n[:, None]
+            out[:, 0, :] += np.where(
+                active, np.asarray(doc_base, np.int32)[:, None], 0)
+
+    def reinsert(buf, fill_fields, split):
+        D, _R, S = buf.shape
+        filler = np.empty((D, len(fill_fields), S), np.int32)
+        for i, f in enumerate(fill_fields):
+            filler[:, i, :] = NOT_REMOVED if f.endswith("_seq") else -1
+        return np.concatenate([buf[:, :split], filler, buf[:, split:]],
+                              axis=1)
+
+    if not props_rows:
+        # Reinsert the constant PROP_ABSENT plane rows before the misc row.
+        if n_props is None:
+            raise ValueError("a props-row reinsert needs the props width")
+        D, _R, S = out.shape
+        filler = np.full((D, n_props, S), PROP_ABSENT, np.int32)
+        out = np.concatenate([out[:, :-1], filler, out[:, -1:]], axis=1)
+    if not ov_rows:
+        out = reinsert(out, OV_SLOT_FIELDS,
+                       fields.index("rem_client") + 1)  # rem2 slots next
+    if not ob_rows:
+        out = reinsert(out, OB_SLOT_FIELDS, len(NON_OB_SLOT_FIELDS))
+    return out
+
+
+def summaries_from_export(meta, export_np,
+                          stats: Optional[dict] = None) -> List[SummaryTree]:
+    """Canonical summaries for a whole chunk from its downloaded export,
+    in any layout ``replay_export`` emits: widened first
+    (``widen_export_native``, else ``widen_export``) to the int32 full
+    layout, then bodies from the C++ extractor (one pass over the buffer)
+    when liboppack is available, else the per-slot Python extraction;
+    interval blobs and oracle-fallback docs take the host paths either
+    way.  ``stats`` (optional dict) accumulates ``device_docs`` /
     ``fallback_docs`` counters — the true device-vs-oracle split."""
     from .interval_replay import FinalStateView, replay_intervals
     from .native_pack import extract_bodies
@@ -879,13 +1458,15 @@ def summaries_from_export(meta, export_np: np.ndarray,
     docs = meta["docs"]
     _refuse_attribution(docs)
     D = len(docs)
-    K = int(meta["props_K"])
-    if export_np.dtype != np.int32 \
-            or export_np.shape[:2] != (D, len(EXPORT_SLOT_FIELDS) + K + 1):
-        raise ValueError(
-            f"expected the int32 full export [D={D}, "
-            f"{len(EXPORT_SLOT_FIELDS) + K + 1}, S]; got "
-            f"{export_np.dtype} {export_np.shape}")
+    _i16, ob_rows_f, ov_rows_f, i8_f, props_rows_f = _export_flags(meta)
+    widened = widen_export_native(
+        export_np, meta.get("doc_base"), ob_rows_f, ov_rows_f, i8_f,
+        meta.get("props_K"), props_rows_f)
+    export_np = widened if widened is not None else widen_export(
+        export_np, meta.get("doc_base"),
+        ob_rows=ob_rows_f, ov_rows=ov_rows_f,
+        i8=i8_f, n_props=meta.get("props_K"),
+        props_rows=props_rows_f)
     state_np = state_dict_from_export(export_np)
     skip = np.zeros(D, np.uint8)
     for d in range(D):
@@ -944,15 +1525,15 @@ def replay_mergetree_batch(
     stats: Optional[dict] = None,
     device="cuda",
 ) -> List[SummaryTree]:
-    """Full pipeline: pack → device fold (one batch of every non-fallback
-    document) → int32 export download → canonical summaries.
+    """Full pipeline: pack → narrow upload → device fold + export (one
+    batch of every non-fallback document) → download → canonical
+    summaries.
 
     Byte-identical to ``SharedString.summarize()`` after the oracle replays
     the same log.  ``stats`` accumulates ``device_docs`` /
     ``fallback_docs`` (pre-pack routing + post-fold overflow fallbacks).
     ``device`` defaults to the card; ``device="cpu"`` runs the plain fold.
     """
-    from ..convert import ops_from_numpy, state_from_numpy
     from .batching import partition_replay
 
     dev = resolve_device(device)
@@ -960,13 +1541,13 @@ def replay_mergetree_batch(
 
     def fold_batch(batch):
         state, ops, meta = pack_mergetree_batch(batch)
-        ops_t = ops_from_numpy(ops, dev)
         if not any(d.base_records for d in batch):
             # all-cold chunk: the initial state is built on the device
-            export = replay_export(None, ops_t, S=state.tstart.shape[1])
+            export = replay_export(None, ops, meta, S=state.tstart.shape[1],
+                                   device=dev)
         else:
-            export = replay_export(state_from_numpy(state, dev), ops_t)
-        return summaries_from_export(meta, export.cpu().numpy(),
+            export = replay_export(state, ops, meta, device=dev)
+        return summaries_from_export(meta, export_to_numpy(export),
                                      stats=stats)
 
     return partition_replay(

@@ -7,15 +7,26 @@
   (deep-lag obliterate arrival kill, overlap removers, annotate race,
   lagged fuzz logs, a warm base with obliterate stamps) plus a directed
   overflow document (three removers of one range);
+- ``cold_fixture_docs`` — the fixture's documents without a base summary,
+  copied under new ids: a cold corpus with obliterates and lagging views
+  (its chunk keeps the obliterate and overlap-remover rows);
+- ``layout_metas`` — copies of a chunk's meta for every transfer layout
+  its facts allow (turning a narrowing fact off, or a row elision off,
+  is always legal; the reverse is not);
 - ``doc_to_json`` / ``doc_from_json`` — the fixture's document format.
+
+Long documents for the device-memory placement are ``synth_doc`` with
+more ops: 2,000 ops pack to S = 4,096 slots.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import os
 import random
-from typing import List
+from typing import Iterator, List, Tuple
 
 from ..dds.sequence import SharedString
 from ..ops.interning import Interner
@@ -159,3 +170,30 @@ def hard_docs() -> List[MergeTreeDocInput]:
     fx = load_fixture()
     return [doc_from_json(d) for d in fx["hard_docs"]] \
         + [doc_from_json(fx["overflow_doc"])]
+
+
+def cold_fixture_docs(copies: int) -> List[MergeTreeDocInput]:
+    """``copies`` rounds of the fixture's documents that have no base
+    summary, each under a new id (``<id>~<round>``)."""
+    cold = [d for d in hard_docs() if not d.base_records]
+    return [dataclasses.replace(d, doc_id=f"{d.doc_id}~{r}")
+            for r in range(copies) for d in cold]
+
+
+def layout_metas(meta: dict) -> Iterator[Tuple[str, dict]]:
+    """``(label, meta copy)`` for every transfer layout a packed chunk's
+    facts allow: the widths i8, i16, i32 down from what ``i8_ok`` /
+    ``i16_ok`` allow, and each row elision (``ob_rows``, ``ov_rows``,
+    ``has_props`` False) either as packed or turned off (rows kept)."""
+    widths = ["i32"]
+    if meta.get("i16_ok"):
+        widths.insert(0, "i16")
+        if meta.get("i8_ok"):
+            widths.insert(0, "i8")
+    rows = [(True,) if meta.get(f, True) else (False, True)
+            for f in ("ob_rows", "ov_rows", "has_props")]
+    for width, (ob, ov, props) in itertools.product(widths,
+                                                    itertools.product(*rows)):
+        yield (f"{width}-ob{int(ob)}-ov{int(ov)}-props{int(props)}",
+               dict(meta, i16_ok=width != "i32", i8_ok=width == "i8",
+                    ob_rows=ob, ov_rows=ov, has_props=props))

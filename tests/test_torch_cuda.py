@@ -1,5 +1,6 @@
-"""The hand-written CUDA fold kernel against the plain PyTorch fold, on
-the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
+"""The hand-written CUDA fold kernel (state-out builds in shared and in
+device memory, and the fold+export build) against the plain PyTorch
+versions, and the entry points against the oracle, on the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
 a CUDA device they skip.  They import neither JAX nor the JAX package, so
 on a machine without JAX they run with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -8,9 +9,10 @@ on a machine without JAX they run with
 import pytest
 import torch
 
-from fluidframework_tpu_torch.convert import ops_from_numpy, state_from_numpy
+from fluidframework_tpu_torch.convert import tensors_to
 from fluidframework_tpu_torch.ops import fold_cuda
 from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+from fluidframework_tpu_torch.ops.pipeline import pipelined_mergetree_replay
 from fluidframework_tpu_torch.testing import workload
 
 pytestmark = pytest.mark.cuda
@@ -37,6 +39,9 @@ CORPORA = {
     # S = 3,072: past the limit of a double-buffered state
     "long-tail-8x1536": lambda: [workload.synth_doc(i, 1536)
                                  for i in range(8)],
+    # S = 4,096: past shared memory, folded in device memory
+    "large-s-3x2000": lambda: [workload.synth_doc(i, 2000)
+                               for i in range(3)],
 }
 
 
@@ -44,11 +49,14 @@ CORPORA = {
 def test_kernel_matches_plain_fold(cuda, corpus):
     docs = CORPORA[corpus]()
     st_np, ops_np, _meta = mt.pack_mergetree_batch(docs)
-    state, ops = state_from_numpy(st_np, cuda), ops_from_numpy(ops_np, cuda)
+    state, ops = tensors_to(st_np, cuda), tensors_to(ops_np, cuda)
+    where = fold_cuda.placement(st_np.tstart.shape[1], st_np.props.shape[2])
     before = fold_cuda.fold.launches
+    before_where = fold_cuda.fold.placements[where]
     got = fold_cuda.fold(state, ops)
     torch.cuda.synchronize()
     assert fold_cuda.fold.launches == before + 1
+    assert fold_cuda.fold.placements[where] == before_where + 1
     want = mt.fold_reference(state, ops)
     _assert_all_equal(want, got)
 
@@ -56,18 +64,113 @@ def test_kernel_matches_plain_fold(cuda, corpus):
 def test_entry_point_on_card_matches_oracle(cuda):
     docs = workload.hard_docs() + [workload.synth_doc(i, 48)
                                    for i in range(16)]
-    before = fold_cuda.fold.launches
+    before = fold_cuda.fold_export.launches
     got = mt.replay_mergetree_batch(docs)
-    assert fold_cuda.fold.launches == before + 1
+    assert fold_cuda.fold_export.launches == before + 1
     want = [workload.oracle_replay(d).summarize().digest() for d in docs]
     assert [s.digest() for s in got] == want
 
 
-def test_state_too_large_for_shared_memory_is_refused(cuda):
+def test_state_too_large_for_shared_memory_folds_in_device_memory(cuda):
+    """A state larger than a block's shared memory folds in device memory
+    (the shared-memory placement does not take it), bit for bit as the
+    plain fold (S = 8,192: ~0.5 MB a document)."""
     ops = mt.MTOps(*[torch.zeros((1, 4), dtype=torch.int32, device=cuda)
                      for _ in range(9)],
                    pvals=torch.full((1, 4, 1), mt.PROP_NOT_TOUCHED,
                                     dtype=torch.int32, device=cuda))
+    ops = ops._replace(kind=torch.tensor([[1, 1, 2, 1]], dtype=torch.int32,
+                                         device=cuda),
+                       seq=torch.tensor([[1, 2, 3, 4]], dtype=torch.int32,
+                                        device=cuda),
+                       ref_seq=torch.tensor([[0, 1, 2, 3]],
+                                            dtype=torch.int32, device=cuda),
+                       tlen=torch.tensor([[5, 3, 0, 2]], dtype=torch.int32,
+                                         device=cuda),
+                       a=torch.tensor([[0, 2, 1, 4]], dtype=torch.int32,
+                                      device=cuda),
+                       b=torch.tensor([[0, 0, 3, 0]], dtype=torch.int32,
+                                      device=cuda))
     state = mt.cold_start(ops, 8192)
-    with pytest.raises(ValueError, match="S=8192 slots and K=1"):
-        fold_cuda.fold(state, ops)
+    assert fold_cuda.placement(8192, 1) == "gmem"
+    before = dict(fold_cuda.fold.placements)
+    got = fold_cuda.fold(state, ops)
+    torch.cuda.synchronize()
+    assert fold_cuda.fold.placements == dict(before,
+                                             gmem=before["gmem"] + 1)
+    _assert_all_equal(mt.fold_reference(state, ops), got)
+
+
+def _leaves(ex):
+    return ex if isinstance(ex, tuple) else (ex,)
+
+
+def _assert_export_equal(want, got, label):
+    want, got = _leaves(want), _leaves(got)
+    assert len(want) == len(got), label
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert (w.dtype, w.shape) == (g.dtype, g.shape), (label, i)
+        assert torch.equal(w, g), (label, i)
+
+
+EXPORT_CORPORA = {
+    "fixture": workload.hard_docs,
+    "obliterate-lagged": lambda: workload.cold_fixture_docs(4),
+    "bench-64x96": lambda: [workload.synth_doc(i, 96) for i in range(64)],
+    "large-s-2x2000": lambda: [workload.synth_doc(i, 2000)
+                               for i in range(2)],
+}
+
+
+@pytest.mark.parametrize("corpus", sorted(EXPORT_CORPORA))
+def test_fused_export_matches_plain_in_every_layout(cuda, corpus):
+    """The fold+export build against the plain decode → fold → export →
+    digest, leaf by leaf (dtype, shape, bytes), in every layout the
+    chunk's facts allow, digest on and off, cold (where the chunk has no
+    base) and warm."""
+    docs = EXPORT_CORPORA[corpus]()
+    st_np, ops_np, meta = mt.pack_mergetree_batch(docs)
+    S = st_np.tstart.shape[1]
+    warmths = ["warm"] if any(d.base_records for d in docs) \
+        else ["cold", "warm"]
+    base = torch.from_numpy(meta["doc_base"]).to(cuda)
+    finals = {}  # the plain decode + fold, once per input encoding
+
+    def plain(state, ops, layout, digest):
+        key = (ops.seq.dtype, None if state is None else state.n.dtype)
+        if key not in finals:
+            wide = mt._widen_ops(ops, base)
+            start = mt.cold_start(wide, S) if state is None \
+                else mt._widen_state(state, base)
+            finals[key] = mt.fold_reference(start, wide)
+        return mt.export_final(finals[key], base, layout, digest)
+
+    seen = 0
+    for label, m in workload.layout_metas(meta):
+        layout = mt._export_flags(m)
+        ops = tensors_to(mt.narrow_ops_for_upload(ops_np, m), cuda)
+        for warmth in warmths:
+            state = None if warmth == "cold" else tensors_to(
+                mt.narrow_state_for_upload(st_np, m), cuda)
+            for digest in (False, True):
+                before = fold_cuda.fold_export.launches
+                got = fold_cuda.fold_export(state, ops, base, layout, digest,
+                                            S=S)
+                torch.cuda.synchronize()
+                assert fold_cuda.fold_export.launches == before + 1
+                _assert_export_equal(plain(state, ops, layout, digest), got,
+                                     (label, warmth, digest))
+                seen += 1
+    assert seen >= 4
+
+
+def test_pipeline_on_card_matches_oracle(cuda):
+    docs = workload.hard_docs() + [workload.synth_doc(i, 48)
+                                   for i in range(40)]
+    stage = {}
+    before = fold_cuda.fold_export.launches
+    got = pipelined_mergetree_replay(docs, chunk_docs=8, stage=stage)
+    assert fold_cuda.fold_export.launches > before
+    want = [workload.oracle_replay(d).summarize().digest() for d in docs]
+    assert [s.digest() for s in got] == want
+    assert stage["d2h_bytes"] > 0 and stage["h2d_bytes"] > 0

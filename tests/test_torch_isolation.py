@@ -14,7 +14,8 @@ PORT = ROOT / "fluidframework_tpu_torch"
 # build/ (gitignored) holds build outputs, not the port's sources
 PORT_FILES = sorted(p for p in PORT.rglob("*.py")
                     if PORT / "build" not in p.parents) \
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_fold_variants.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_fold_variants.py",
+       ROOT / "tools" / "torch_pipeline_turns.py"]
 FORBIDDEN = ("jax", "jaxlib", "fluidframework_tpu")
 
 
@@ -85,8 +86,7 @@ def test_wrapper_refuses_non_cuda_non_cpu_tensors():
 def test_wrapper_checks_what_the_kernel_reads():
     """The launch-side validation runs on any device: well-formed packed
     tensors pass; a wrong dtype, shape or layout is refused."""
-    from fluidframework_tpu_torch.convert import (ops_from_numpy,
-                                                  state_from_numpy)
+    from fluidframework_tpu_torch.convert import tensors_to
     from fluidframework_tpu_torch.ops import fold_cuda
     from fluidframework_tpu_torch.ops import mergetree_kernel as mt
     from fluidframework_tpu_torch.testing.workload import synth_doc
@@ -94,7 +94,7 @@ def test_wrapper_checks_what_the_kernel_reads():
     st_np, ops_np, _meta = mt.pack_mergetree_batch(
         [synth_doc(i, 20) for i in range(3)])
     cpu = torch.device("cpu")
-    state, ops = state_from_numpy(st_np, cpu), ops_from_numpy(ops_np, cpu)
+    state, ops = tensors_to(st_np, cpu), tensors_to(ops_np, cpu)
     assert fold_cuda._check(state, ops, cpu) == (
         3, st_np.tstart.shape[1], ops_np.kind.shape[1], 1)
     bad = [

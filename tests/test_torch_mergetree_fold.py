@@ -15,7 +15,7 @@ import torch
 
 from fluidframework_tpu.ops import mergetree_kernel as ref_mt
 from fluidframework_tpu.ops.pallas_fold import replay_vmapped_pallas
-from fluidframework_tpu_torch.convert import ops_from_numpy, state_from_numpy
+from fluidframework_tpu_torch.convert import tensors_to
 from fluidframework_tpu_torch.ops import fold_cuda
 from fluidframework_tpu_torch.ops import mergetree_kernel as mt
 from tests.torch_corpora import (FOLD_CORPORA, assert_states_equal,
@@ -28,8 +28,8 @@ def _packed(docs):
 
 
 def _fold_cpu(state, ops):
-    return mt.fold_reference(state_from_numpy(state, "cpu"),
-                             ops_from_numpy(ops, "cpu"))
+    return mt.fold_reference(tensors_to(state, "cpu"),
+                             tensors_to(ops, "cpu"))
 
 
 @pytest.mark.parametrize("corpus", sorted(FOLD_CORPORA))
@@ -137,8 +137,8 @@ def test_cpu_wrapper_uses_plain_fold_and_counts_no_launch():
     docs = bench_docs(6, 24)
     state, ops, _meta = _packed(docs)
     before = fold_cuda.fold.launches
-    got = fold_cuda.fold(state_from_numpy(state, "cpu"),
-                         ops_from_numpy(ops, "cpu"))
+    got = fold_cuda.fold(tensors_to(state, "cpu"),
+                         tensors_to(ops, "cpu"))
     assert fold_cuda.fold.launches == before
     want = _fold_cpu(state, ops)
     for f in mt.MTState._fields:
@@ -148,7 +148,7 @@ def test_cpu_wrapper_uses_plain_fold_and_counts_no_launch():
 def test_cold_start_matches_packed_empty_state():
     docs = bench_docs(5, 16)
     state, ops, _meta = _packed(docs)
-    cold = mt.cold_start(ops_from_numpy(ops, "cpu"), state.tstart.shape[1])
+    cold = mt.cold_start(tensors_to(ops, "cpu"), state.tstart.shape[1])
     for f in mt.MTState._fields:
         np.testing.assert_array_equal(getattr(cold, f).numpy(),
                                       getattr(state, f), err_msg=f)

@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU::
 
 It builds, with the kernel's own nvcc flags and all at once:
 
-- ``kernel``: ``fluidframework_tpu_torch/csrc/mergetree_fold.cu`` as it is;
+- ``kernel``: ``fluidframework_tpu_torch/csrc/mergetree_fold.cu`` as it is
+  (its state-out build in shared memory, the one every variant changes);
 - ``baseline`` (with ``--baseline``): another source of the kernel with the
   same C interface, such as an earlier commit's, unpacked by
   ``git archive`` into a directory ``.gitignore`` lists;
@@ -69,12 +70,12 @@ def _phase_cycle_edits():
         ("constexpr unsigned kFull = 0xffffffffu;\n",
          "constexpr unsigned kFull = 0xffffffffu;\n"
          "__device__ unsigned long long g_cyc[8];\n"),
-        ("  bool overflow = args.ov_in[d] != 0;\n",
-         "  bool overflow = args.ov_in[d] != 0;\n"
+        ("  int n;\n  bool overflow;\n",
+         "  int n;\n  bool overflow;\n"
          "  long long cyc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"),
-        ("    load(t0, tl, t0 == 0);\n",
-         "    long long c_ = clock64();\n    load(t0, tl, t0 == 0);\n"
-         "    cyc[0] += clock64() - c_;\n"),
+        ("      load(t0, tl, t0 == 0);\n",
+         "      long long c_ = clock64();\n      load(t0, tl, t0 == 0);\n"
+         "      cyc[0] += clock64() - c_;\n"),
         ("      const View w = take_view(",
          "      long long c0_ = clock64();\n      const View w = take_view("),
         ("      const bool cut_a = w.ia >= 0;\n",
@@ -92,10 +93,11 @@ def _phase_cycle_edits():
         ("        overflow |= __any_sync(kFull, over) != 0;\n",
          "        cyc[4] += clock64() - c2_;\n        cyc[7] += 1;\n"
          "        overflow |= __any_sync(kFull, over) != 0;\n"),
-        ("  // State out: each lane sends one row back with a bulk copy.\n",
-         "  long long c5_ = clock64();\n"),
-        ("    args.ov_out[d] = overflow ? 1 : 0;\n  }\n}\n",
-         "    args.ov_out[d] = overflow ? 1 : 0;\n  }\n  __syncwarp();\n"
+        ("  if constexpr (kExport) {\n",
+         "  long long c5_ = clock64();\n  if constexpr (kExport) {\n"),
+        ("      args.ov_out[d] = overflow ? 1 : 0;\n    }\n  }\n}\n",
+         "      args.ov_out[d] = overflow ? 1 : 0;\n    }\n  }\n"
+         "  __syncwarp();\n"
          "  cyc[5] += clock64() - c5_;\n  if (lane == 0)\n"
          "    for (int i = 0; i < 8; ++i)\n"
          "      atomicAdd(&g_cyc[i], (unsigned long long)cyc[i]);\n}\n"),
@@ -146,8 +148,12 @@ def build_all(texts: dict, out_dir: str) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = fold_cuda.bind(ctypes.CDLL(
-            os.path.join(out_dir, f"lib{name}.so")))
+        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
+        # Builds of this source answer the occupancy query; an older
+        # baseline may not.
+        lib = fold_cuda.bind_all(lib) \
+            if hasattr(lib, "mergetree_fold_occupancy_of") \
+            else fold_cuda.bind(lib)
         built[name] = (lib, [ln.strip() for ln in log.splitlines()
                              if "registers" in ln])
     return built
@@ -167,7 +173,7 @@ def main() -> int:
         print("torch_fold_variants: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from fluidframework_tpu_torch.convert import ops_from_numpy
+    from fluidframework_tpu_torch.convert import tensors_to
     from fluidframework_tpu_torch.ops import fold_cuda
     from fluidframework_tpu_torch.ops import mergetree_kernel as mt
     from fluidframework_tpu_torch.ops.native_pack import BUILD_DIR
@@ -179,7 +185,7 @@ def main() -> int:
     docs = [workload.synth_doc(i, N_OPS) for i in range(N_DOCS)]
     st_np, ops_np, _meta = mt.pack_mergetree_batch(docs)
     S = st_np.tstart.shape[1]
-    ops = ops_from_numpy(ops_np, "cuda")
+    ops = tensors_to(ops_np, "cuda")
     state = mt.cold_start(ops, S)
 
     want = fold_cuda.fold(state, ops, lib=libs["kernel"])
@@ -231,7 +237,7 @@ def main() -> int:
     ins_rows, range_rows = one[6], one[7]
     occupancy = {name: fold_cuda.occupancy(S, 1, lib=lib)
                  for name, lib in libs.items()
-                 if hasattr(lib, "mergetree_fold_occupancy")}
+                 if hasattr(lib, "mergetree_fold_occupancy_of")}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
