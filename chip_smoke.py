@@ -6,7 +6,7 @@ only the port (``fluidframework_tpu_torch``), torch and numpy, builds the
 port's libraries from the sources in the checkout, and runs in order:
 
 0. card and build — the card's name and power limit, then the C++ packer
-   (g++) and the fold kernel (nvcc) built side by side, with the
+   (g++) and the two kernel sources (nvcc) built side by side, with the
    compiler's register/spill report and the launch each build of the
    kernel takes (blocks and documents per SM) at the pinned, long-tail
    and large shapes;
@@ -40,13 +40,24 @@ port's libraries from the sources in the checkout, and runs in order:
    dict, and ``h2d_bytes`` / ``d2h_bytes`` equal to the values worked out
    from ``export_layout_rows`` and the narrow dtypes; then the pipelined
    and the one-batch rates timed in turns (P B B P, twice);
-7. times — each build of the kernel alone (CUDA events behind a device
-   spin, median of 7; and the whole call), its plain version once, its
-   bound, and the ``kernels`` line.
+7. the warm catch-up path at full width (``warm_phase``, after the
+   reference's ``run_delta_download_bench``): the pinned streams as
+   tokened message lists, a cold fill of 80-op windows with the three
+   cache tiers on, an exact warm re-run (no pack bytes up, only the digest
+   plane down), every 8th document grown to 96 ops with the tiers on and
+   off, and the pinned resident-state tier below its working set (spill,
+   then restore); every pass equal to the one batch of the same windows;
+   the resident kernels (``csrc/resident.cu``: the in-place splice and the
+   narrow-to-wide migration) held against their plain versions on the
+   phase's own resident buffers and timed;
+8. times — each build of the fold kernel alone (CUDA events behind a
+   device spin, median of 7; and the whole call), its plain version once,
+   its bound, and the ``kernels`` line (the four fold builds and the two
+   resident kernels).
 
 Each driven path (the one-batch entry, the state path, the large-S
-paths, the pipeline) runs with every launch count set to 0 just before it
-and read just after.  One JSON object per phase goes to stdout.  Any
+paths, the pipeline, each warm pass) runs with every launch count set to
+0 just before it and read just after.  One JSON object per phase goes to stdout.  Any
 failure raises (non-zero exit, no result line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
@@ -78,6 +89,13 @@ TURNS = "PBBPPBBP"
 DEVICE = "cuda"
 KERNEL_SOURCE = "fluidframework_tpu_torch/csrc/mergetree_fold.cu"
 TPU_KERNEL = "fluidframework_tpu/ops/pallas_fold.py:419"
+#: the warm phase (bench.py run_delta_download_bench): cold windows of
+#: 5/6 of the pinned ops, every GROW_EVERY-th document grown to all of them
+WARM_BASE_OPS, GROW_EVERY = N_OPS * 5 // 6, 8
+RESIDENT_SOURCE = "fluidframework_tpu_torch/csrc/resident.cu"
+#: the reference's XLA-traced device code the resident kernels replace
+SPLICE_REPLACES = "fluidframework_tpu/ops/device_cache.py:126"
+WIDEN_REPLACES = "fluidframework_tpu/ops/device_cache.py:229"
 #: H100 SXM device memory rate (bytes/s), NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 #: int32 ALU rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
@@ -112,7 +130,8 @@ def card_line() -> str:
 
 
 def build_all():
-    """g++ for the packer and nvcc for the kernel, started together."""
+    """g++ for the packer and nvcc for each kernel source, started
+    together."""
     from fluidframework_tpu_torch.ops import _cuda_build, native_pack
 
     results, errors = {}, {}
@@ -128,7 +147,9 @@ def build_all():
                 "oppack", native_pack._build_library)),
             threading.Thread(target=run, args=(
                 "mergetree_fold", lambda: _cuda_build.build(
-                    "mergetree_fold")))]
+                    "mergetree_fold"))),
+            threading.Thread(target=run, args=(
+                "resident", lambda: _cuda_build.build("resident")))]
     for j in jobs:
         j.start()
     for j in jobs:
@@ -387,18 +408,293 @@ def state_out_bytes(D, S, T, K):
 
 
 def reset_counts():
-    from fluidframework_tpu_torch.ops import fold_cuda
+    from fluidframework_tpu_torch.ops import fold_cuda, resident_cuda
 
     fold_cuda.reset_launches()
+    resident_cuda.reset_launches()
 
 
 def read_counts():
-    """Launches of each build of the kernel since ``reset_counts``."""
-    from fluidframework_tpu_torch.ops import fold_cuda
+    """Launches of each build of the fold kernel and of each resident
+    kernel since ``reset_counts``."""
+    from fluidframework_tpu_torch.ops import fold_cuda, resident_cuda
 
-    return {f"{entry.__name__}_{where}": n
-            for entry in (fold_cuda.fold, fold_cuda.fold_export)
-            for where, n in entry.placements.items()}
+    counts = {f"{entry.__name__}_{where}": n
+              for entry in (fold_cuda.fold, fold_cuda.fold_export)
+              for where, n in entry.placements.items()}
+    counts["splice_rows"] = resident_cuda.splice_rows.launches
+    counts["widen_resident"] = resident_cuda.widen_resident.launches
+    return counts
+
+
+def bytes_bound(moved, elements):
+    """Least time for a kernel that moves ``moved`` bytes and does about
+    one integer operation an element: the larger of the two over the
+    card's rates."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = elements / INT32_OPS_PER_S * 1e3
+    return {"bytes": moved, "int_ops": elements, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def tree_diff(want, got):
+    """Largest |difference| over the planes of two namedtuples of tensors
+    (0 only when every plane has the same dtype, shape and bytes)."""
+    return max(leaves_diff(getattr(want, f), getattr(got, f))
+               for f in type(want)._fields)
+
+
+def warm_phase(dev, docs, sample, drive, launches):
+    """Phase 7: the warm catch-up path at full width, as the reference's
+    ``run_delta_download_bench`` (bench.py) drives it.  The pinned
+    workload's streams as message lists under stable cache tokens: a cold
+    fill of 5/6-length windows with every tier on, a second pack cache
+    filled for the tiers-off runs, an exact warm re-run, every 8th
+    document grown to the full stream (same T bucket, so the splice route
+    applies) with the tiers on and off, then the pinned resident-state
+    tier below its working set (spill) and again (restore).  Every pass
+    equals ``replay_mergetree_batch`` of the same windows (which equals
+    the CPU oracle on a sample); the resident kernels are held against
+    their plain versions on the phase's own resident buffers.  Returns the
+    two resident kernels' rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.convert import tensors_to
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+    from fluidframework_tpu_torch.ops import resident_cuda
+    from fluidframework_tpu_torch.ops.device_cache import (
+        DevicePackCache, gather_suffix_rows)
+    from fluidframework_tpu_torch.ops.pipeline import (
+        PackCache, pipelined_mergetree_replay)
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+    from fluidframework_tpu_torch.testing import workload
+
+    def digests(summaries):
+        return [x.digest() for x in summaries]
+
+    t = time.perf_counter()
+    streams = [workload.doc_ops(d) for d in docs]
+    decode_s = time.perf_counter() - t
+    grown_idx = set(range(0, len(docs), GROW_EVERY))
+
+    def window(i, n):
+        msgs = streams[i][:n]
+        return mt.MergeTreeDocInput(
+            doc_id=f"ddoc{i}", ops=msgs, final_seq=msgs[-1].seq,
+            final_msn=0, cache_token=("bench-epoch", f"ddoc{i}", 0, ""))
+
+    windows = {
+        "base": [window(i, WARM_BASE_OPS) for i in range(len(docs))],
+        "grown": [window(i, N_OPS if i in grown_idx else WARM_BASE_OPS)
+                  for i in range(len(docs))]}
+    want, refs = {}, {}
+    for label, ds in windows.items():
+        t = time.perf_counter()
+        want[label] = digests(mt.replay_mergetree_batch(ds, device=dev))
+        batch_s = time.perf_counter() - t
+        bad = [i for i in sample if want[label][i]
+               != workload.oracle_replay(ds[i]).summarize().digest()]
+        refs[label] = {"batch_s": batch_s, "oracle_mismatches": bad}
+        if bad:
+            raise AssertionError(f"warm {label} windows: one batch differs "
+                                 f"from the oracle at {bad[:8]}")
+
+    pack, delta = PackCache(), DeltaExportCache()
+    resident = DevicePackCache(device=dev)
+    on = {"pack_cache": pack, "delta_cache": delta,
+          "device_cache": resident}
+    off = {"pack_cache": PackCache()}
+    passes = {}
+
+    def one_pass(name, label, tiers, pin=False):
+        stage, stats, packed = {}, {}, []
+        got, wall = drive(f"warm_{name}", lambda: pipelined_mergetree_replay(
+            windows[label], chunk_docs=CHUNK_DOCS, stats=stats, stage=stage,
+            packed_out=packed, pin_resident=pin, device=dev, **tiers))
+        rec = {"windows": label, "wall_s": wall,
+               "busy_s": {k: v for k, v in stage.items()
+                          if not k.endswith("_bytes")},
+               "h2d_bytes": stage["h2d_bytes"],
+               "d2h_bytes": stage["d2h_bytes"],
+               "delta_docs": stats.get("delta_docs", 0), "stats": stats,
+               "launches": launches[f"warm_{name}"],
+               "tiers": {k: v.stats() for k, v in tiers.items()},
+               "equals_batch": digests(got) == want[label]}
+        emit({"phase": "warm_pass", "pass": name, **rec})
+        if not rec["equals_batch"]:
+            raise AssertionError(f"warm pass {name}: summaries differ from "
+                                 f"the one batch of the same windows")
+        passes[name] = rec
+        return packed
+
+    def entry_of(meta):
+        return resident._entries[tuple(d.cache_token for d in meta["docs"])]
+
+    # 1-2. cold fill with every tier on; the tiers-off pack cache filled
+    cold_packed = one_pass("cold", "base", on)
+    one_pass("fill_off", "base", off)
+
+    # 3. exact warm re-run: the folds read the resident buffers, which must
+    # keep their bytes (the fold+export build never writes its inputs)
+    entries = [entry_of(m) for _s, _o, m, _t in cold_packed]
+    before = [[x.clone() for x in tuple(e.ops) + (e.base,)] for e in entries]
+    one_pass("exact", "base", on)
+    unchanged = all(torch.equal(a, b) for e, snap in zip(entries, before)
+                    for a, b in zip(tuple(e.ops) + (e.base,), snap))
+    if not unchanged:
+        raise AssertionError("a fold wrote a resident buffer it read")
+    exact = passes["exact"]
+    if exact["h2d_bytes"] != 0 or exact["d2h_bytes"] != 8 * len(docs):
+        raise AssertionError(f"exact warm re-run moved h2d "
+                             f"{exact['h2d_bytes']} / d2h "
+                             f"{exact['d2h_bytes']} B; want 0 / "
+                             f"{8 * len(docs)}")
+
+    # widen_resident on the resident narrow buffers, against the plain
+    # decode (new tensors: the entries are not touched)
+    cold_dtype = str(entries[0].ops.seq.dtype)
+    widen_err = 0
+    for e, (_s, host_ops, meta, _t) in zip(entries, cold_packed):
+        narrow = e.ops if mt.upload_encoding(e.ops) else tensors_to(
+            mt.narrow_ops_for_upload(host_ops, meta), dev)
+        if not mt.upload_encoding(narrow):
+            raise AssertionError("the cold chunk did not narrow")
+        widen_err = max(widen_err, tree_diff(
+            mt._widen_ops(narrow, e.base),
+            resident_cuda.widen_resident(narrow, e.base)))
+    if widen_err:
+        raise AssertionError(f"widen_resident != plain: {widen_err}")
+    w_ops, w_base = entries[0].ops, entries[0].base
+    w_ms, w_runs = time_call(
+        lambda: resident_cuda.widen_resident(w_ops, w_base))
+    _out, w_plain_ms = timed_once(lambda: mt._widen_ops(w_ops, w_base))
+    w_numel = sum(x.numel() for x in w_ops)
+    w_bound = bytes_bound(nbytes(tuple(w_ops)) + nbytes(w_base)
+                          + 4 * w_numel, w_numel)
+
+    # 4. grown warm run with the tiers on: suffix splices (and, where the
+    # suffix text pushed the chunk past the int16 bound, the migration)
+    grown_packed = one_pass("grown", "grown", on)
+    grown_entries = [entry_of(m) for _s, _o, m, _t in grown_packed]
+    migrated = sum(1 for e in grown_entries
+                   if e.ops.seq.dtype == torch.int32)
+    mirror_err = max(tree_diff(mt.MTOps(*(torch.from_numpy(
+        np.ascontiguousarray(x)).to(dev) for x in host_ops)), e.ops)
+        for e, (_s, host_ops, _m, _t) in zip(grown_entries, grown_packed))
+    if mirror_err:
+        raise AssertionError(f"resident ops differ from the grown chunk's "
+                             f"host arrays: {mirror_err}")
+    # splice_rows on the resident buffers: the suffix rows spliced again,
+    # by the kernel and by the plain version, into copies whose every
+    # element from each document's t_old on is bit-flipped first.  The
+    # splice must restore exactly the rows [t_old, t_new) (a missed
+    # element stays flipped) and write nothing from t_new on (pad rows
+    # there would overwrite the flipped values).
+    def flipped_from(ops, first):
+        cut = torch.arange(ops.kind.shape[1], device=dev)[None, :] \
+            >= first[:, None]
+        return mt.MTOps(*(torch.where(cut if x.ndim == 2 else cut[..., None],
+                                      ~x, x) for x in ops))
+
+    splice_err, splice_case = 0, None
+    for e, (_s, host_ops, _m, _t), (_s0, cold_ops, _m0, _t0) in zip(
+            grown_entries, grown_packed, cold_packed):
+        t_old = np.count_nonzero(np.asarray(cold_ops.kind), axis=1).astype(
+            np.int32)
+        t_new = np.count_nonzero(np.asarray(host_ops.kind), axis=1).astype(
+            np.int32)
+        rows_np, L = gather_suffix_rows(mt.MTOps, host_ops, t_old, t_new)
+        rows = mt.MTOps(**{f: torch.from_numpy(v).to(dev)
+                           for f, v in rows_np.items()})
+        start = torch.from_numpy(t_old).to(dev)
+        count = torch.from_numpy(t_new - t_old).to(dev)
+        unspliced = flipped_from(e.ops, start)
+        kernel = mt.MTOps(*(x.clone() for x in unspliced))
+        plain = mt.MTOps(*(x.clone() for x in unspliced))
+        resident_cuda.splice_rows(kernel, rows, start, count)
+        resident_cuda.splice_rows_reference(plain, rows, start, count)
+        splice_err = max(splice_err, tree_diff(plain, kernel), tree_diff(
+            flipped_from(e.ops, torch.from_numpy(t_new).to(dev)), kernel))
+        if int((t_new - t_old).sum()) and not tree_diff(unspliced, kernel):
+            raise AssertionError("splice_rows wrote no row of the suffix")
+        if splice_case is None:
+            splice_case = (kernel, plain, rows, start, count, L,
+                           int((t_new - t_old).sum()))
+    if splice_err:
+        raise AssertionError(f"splice_rows != plain: {splice_err}")
+    kernel, plain, rows, start, count, L, n_rows = splice_case
+    s_ms, s_runs = time_call(
+        lambda: resident_cuda.splice_rows(kernel, rows, start, count))
+    _out, s_plain_ms = timed_once(
+        lambda: resident_cuda.splice_rows_reference(plain, rows, start,
+                                                    count))
+    row_bytes = sum(x.element_size() * (x.shape[2] if x.ndim == 3 else 1)
+                    for x in kernel)
+    s_bound = bytes_bound(2 * n_rows * row_bytes + nbytes((start, count)),
+                          n_rows * sum(x.shape[2] if x.ndim == 3 else 1
+                                       for x in kernel))
+
+    # 5. the same grown corpus with the tiers off
+    one_pass("grown_off", "grown", off)
+    grown, full = passes["grown"], passes["grown_off"]
+    ratios = {"h2d": full["h2d_bytes"] / max(1, grown["h2d_bytes"]),
+              "d2h": full["d2h_bytes"] / max(1, grown["d2h_bytes"])}
+    if not (grown["h2d_bytes"] < full["h2d_bytes"]
+            and grown["d2h_bytes"] < full["d2h_bytes"]):
+        raise AssertionError(f"the grown warm run moved no fewer bytes than "
+                             f"the tiers-off run: {ratios}")
+
+    # 6. the pinned resident-state tier below its working set, twice
+    resident.pin_max_bytes = resident.stats()["bytes"] // 2
+    one_pass("pinned", "grown", on, pin=True)
+    one_pass("pinned_again", "grown", on, pin=True)
+    st = resident.stats()
+    if st["spills"] < 1 or st["unspills"] < 1:
+        raise AssertionError(f"the pinned passes did not spill and "
+                             f"restore: {st}")
+
+    k6 = launches["warm_grown"]
+    emit({"phase": "warm", "docs": len(docs), "base_ops": WARM_BASE_OPS,
+          "grown_docs": len(grown_idx), "decode_s": decode_s,
+          "references": refs, "resident_unchanged_by_folds": unchanged,
+          "cold_entry_ops_dtype": cold_dtype,
+          "migrated_entries": migrated, "entries": len(grown_entries),
+          "grown_vs_off_ratio": ratios,
+          "k1_launches": {k: {b: n for b, n in v.items()
+                              if b.startswith("fold")}
+                          for k, v in launches.items()
+                          if k.startswith("warm_")},
+          "k6_launches_grown": {"splice_rows": k6["splice_rows"],
+                                "widen_resident": k6["widen_resident"]},
+          "splice_rows": {"max_abs_err": splice_err, "shape": [
+              kernel.kind.shape[0], kernel.kind.shape[1], L],
+              "dtype": str(kernel.seq.dtype), "rows": n_rows, "ms": s_ms,
+              "runs_ms": s_runs, "plain_ms": s_plain_ms, "bound": s_bound},
+          "widen_resident": {"max_abs_err": widen_err,
+                             "shape": list(w_ops.kind.shape),
+                             "ms": w_ms, "runs_ms": w_runs,
+                             "plain_ms": w_plain_ms, "bound": w_bound},
+          "tiers": {k: v.stats() for k, v in on.items()}})
+    for name in ("splice_rows", "widen_resident"):
+        if k6[name] < 1:
+            raise AssertionError(f"{name}: no launch on the grown warm run "
+                                 f"({k6})")
+
+    def row(name, replaces, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda", "source": RESIDENT_SOURCE,
+                "replaces": replaces, "launches": k6[name],
+                "path": "warm_grown", "max_abs_err": err, "tolerance": 0,
+                "parity": err == 0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "library_ms": None}
+
+    return [row("splice_rows", SPLICE_REPLACES, splice_err, s_ms,
+                s_plain_ms, s_bound),
+            row("widen_resident", WIDEN_REPLACES, widen_err, w_ms,
+                w_plain_ms, w_bound)]
 
 
 def main() -> int:
@@ -447,9 +743,11 @@ def main() -> int:
     occ = [fold_cuda.occupancy(S, 1, kernel=k)
            for S in (PINNED_S, TAIL_S, LARGE_S)
            for k in ("fold", "fold_export")]
-    with open(_cuda_build.library_path("mergetree_fold") + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln
-                 or "spill" in ln or "smem" in ln]
+    ptxas = {}
+    for source in ("mergetree_fold", "resident"):
+        with open(_cuda_build.library_path(source) + ".log") as f:
+            ptxas[source] = [ln.strip() for ln in f if "registers" in ln
+                             or "spill" in ln or "smem" in ln]
     emit({"phase": "build", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "seconds": {k: v[1] for k, v in built.items()},
@@ -720,7 +1018,10 @@ def main() -> int:
         raise AssertionError("pipelined byte counters differ from the "
                              "layout's")
 
-    # -- 7. times ----------------------------------------------------------
+    # -- 7. the warm catch-up path at full width ---------------------------
+    k6_rows = warm_phase(dev, docs, sample, drive, launches)
+
+    # -- 8. times ----------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -808,7 +1109,7 @@ def main() -> int:
         entry("fold_export_gmem", "gmem", "large_pipeline",
               [wave, lg_S, lg_T, 1], parity["fold_export_gmem"], lg_fx[0],
               lg_fx[2], lg_fx[3], lg_fx[4]),
-    ]})
+    ] + [dict(r, card=card) for r in k6_rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -56,4 +56,5 @@ def doc_input_from(obj) -> MergeTreeDocInput:
         binary_prop_keys=obj.binary_prop_keys,
         binary_values=obj.binary_values,
         attribution=obj.attribution,
+        cache_token=getattr(obj, "cache_token", None),
     )

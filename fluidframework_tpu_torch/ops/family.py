@@ -2,23 +2,26 @@
 implements to ride the shared catch-up pipeline (``ops/pipeline.py``).
 
 The port's copy of ``fluidframework_tpu/ops/family.py``.  Everything the
-pipeline does per chunk — pack, upload encoding, dispatch, download,
-extraction, fallback routing — goes through these hooks, and
-``pipelined_mergetree_replay`` is one instance of the generic fold.  Only
-the merge-tree instance is ported so far.
+pipeline does per chunk — pack, tier-2 window reuse, upload (tier 2.5),
+dispatch, the tier-0 digest handshake, download, extraction, fallback
+routing — goes through these hooks, and ``pipelined_mergetree_replay`` is
+one instance of the generic fold.  Only the merge-tree instance is ported
+so far.
 
 A family's ``(state, ops)`` are namedtuples of ``[D, ...]`` planes with
-the document axis leading.  The reference's hooks for the catch-up cache
-tiers (``bypass``, ``entry_rows``, ``entry_nbytes``, ``extend``,
-``gather_rows``, ``per_doc_meta``) and the mesh (``make_pad``,
-``pad_token``, ``dispatch_sharded``) join this descriptor with the
-slices that port those paths (ROADMAP queue 1 items 3 and 7).
+the document axis leading — the invariant every generic helper
+(``match_windows``, ``gather_export_rows``) relies on.  Hooks that a
+family does not support are None and the corresponding tier degrades
+(e.g. ``extend=None`` turns every grown-tail window into a full repack —
+a lost win, never corruption).  The reference's mesh hooks
+(``make_pad``, ``pad_token``, ``dispatch_sharded``) join this descriptor
+with the slice that ports the mesh (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +34,16 @@ class KernelFamily:
       - ``fallback_summary(doc)`` → SummaryTree: the exactness escape
         hatch (also the post-fold fallback the extractor takes).
 
-    pack
-      - ``pack(chunk)`` → ``(state, ops, meta)`` as host arrays.
+    pack / tier 2
+      - ``pack(chunk)`` → ``(state, ops, meta)`` as host arrays;
+      - ``bypass(doc)`` → bool: cache-ineligible beyond a missing token
+        (e.g. merge-tree binary streams);
+      - ``entry_rows(chunk, meta)`` → per-document used op-row counts
+        (the suffix fill offsets the cache entry tracks);
+      - ``entry_nbytes(state, ops, meta)`` → retained bytes for the LRU
+        budget;
+      - ``extend(entry, chunk)`` → ``(state, ops, meta)`` | None: pack
+        only the suffix on top of a cached window (None = repack).
 
     upload / dispatch
       - ``order(batch, schedule)`` → schedule-order index list;
@@ -46,18 +57,26 @@ class KernelFamily:
       - ``split_digest(export, want)`` → ``(core, digest | None)``;
       - ``chunk_tag(meta)`` → value stored in ``packed_out`` tuples.
 
-    download / extract
+    download / extract / tier 0
       - ``fetch(core)`` → host arrays (the full d2h transfer);
+      - ``gather_rows(core, idx)`` → ``(rows, moved_bytes)``: only the
+        changed documents' rows;
       - ``extract(meta, arr, stats)`` → summaries (counting post-fold
-        fallbacks into ``stats``).
+        fallbacks into ``stats``);
+      - ``per_doc_meta``: names of per-document ndarray meta entries the
+        changed-rows sub-meta must slice alongside docs/doc_packs.
     """
 
     name: str
     # routing
     known_fallback: Callable[[Any], Any]
     fallback_summary: Callable[[Any], Any]
-    # pack
+    # pack / tier 2
     pack: Callable[[Any], Tuple[Any, Any, dict]]
+    bypass: Callable[[Any], bool]
+    entry_rows: Callable[[Any, dict], Any]
+    entry_nbytes: Callable[[Any, Any, dict], int]
+    extend: Optional[Callable[[Any, Any], Any]]
     # upload / dispatch
     order: Callable[[Any, bool], Any]
     narrow: Callable[[Any, Any, Any, dict], Tuple[Any, Any]]
@@ -65,6 +84,8 @@ class KernelFamily:
     dispatch: Callable[[Any, Any, dict, bool, Any], Any]
     split_digest: Callable[[Any, bool], Tuple[Any, Any]]
     chunk_tag: Callable[[dict], Any]
-    # download / extract
+    # download / extract / tier 0
     fetch: Callable[[Any], Any]
+    gather_rows: Callable[[Any, Any], Tuple[Any, int]]
     extract: Callable[[dict, Any, dict], Any]
+    per_doc_meta: Tuple[str, ...] = ()

@@ -752,6 +752,74 @@ def _leaf_to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _take_docs(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The documents ``idx`` of a device leaf (one gather along the
+    document axis; the reference's ``jnp.take`` under ``jit``)."""
+    return torch.index_select(a, 0, idx)
+
+
+def _host_view(a) -> Optional[np.ndarray]:
+    """Zero-copy numpy view of a leaf the host can read (a numpy array, or
+    a tensor on the CPU), or None when it lies on the card.  On the CPU
+    the "d2h link" IS host memory: the delta fetch copies exactly the
+    requested rows."""
+    if isinstance(a, np.ndarray):
+        return a
+    if a.device.type == "cpu":
+        return a.numpy()
+    return None
+
+
+def gather_export_rows(export, idx: np.ndarray, fetch=None):
+    """Fetch ONLY the documents in ``idx`` from an export — the
+    delta-download fetch.  Returns ``(rows, moved_bytes)`` where each leaf
+    of ``rows`` has exactly ``len(idx)`` document rows and
+    ``moved_bytes`` counts what actually crossed the d2h link:
+
+    - on host-readable leaves, exactly the requested rows, copied;
+    - on the card, ``idx`` padded to ``next_bucket_fine(m, floor=8)``
+      (the reference's bucketed gather; the pad rows DO cross and are
+      counted), one ``index_select`` along the document axis and the copy
+      of those rows — or, when the padded count reaches the buffer's
+      rows, the whole buffer, sliced on the host.
+
+    ``fetch`` copies a list of device tensors to numpy (default: a plain
+    ``.cpu()`` each); a handle that fetches itself (the pipeline's
+    ``DeviceExport``) is asked to gather."""
+    gather = getattr(export, "gather_rows", None)
+    if gather is not None:
+        return gather(idx)
+    fetch = fetch or (lambda xs: [_leaf_to_numpy(x) for x in xs])
+    leaves = export if isinstance(export, tuple) else (export,)
+    rows = np.asarray(idx, np.intp)
+    m = rows.shape[0]
+    bucket = next_bucket_fine(m, floor=8)
+    out: List[Any] = [None] * len(leaves)
+    moved = 0
+    dev_idx = None
+    pending = []  # (leaf position, device tensor to copy, whole buffer)
+    for i, a in enumerate(leaves):
+        view = _host_view(a)
+        if view is not None:
+            out[i] = view[rows]
+            moved += out[i].nbytes
+        elif bucket >= a.shape[0]:
+            pending.append((i, a, True))
+        else:
+            if dev_idx is None:
+                padded = np.concatenate(
+                    [rows, np.repeat(rows[-1:], bucket - m)])
+                dev_idx = torch.from_numpy(padded.astype(np.int64)).to(
+                    a.device)
+            pending.append((i, _take_docs(a, dev_idx), False))
+    if pending:
+        for (i, _a, whole), host in zip(pending,
+                                        fetch([a for _i, a, _w in pending])):
+            moved += host.nbytes
+            out[i] = host[rows] if whole else host[:m]
+    return (tuple(out) if isinstance(export, tuple) else out[0]), moved
+
+
 def export_to_numpy(export):
     """Fetch an export to numpy: a leaf, or a tuple of leaves for the i8
     layout's ``(rows, misc)`` pair (and a digest).  A handle that fetches
@@ -850,6 +918,14 @@ class MergeTreeDocInput:
     #: attribution-enabled document: the summary gains an "attribution"
     #: blob.  Not ported yet (ROADMAP queue 1): such documents raise.
     attribution: bool = False
+    #: Opaque identity of the (document, base summary, storage generation)
+    #: this tail extends — set by callers that want the pipeline's cache
+    #: tiers to reuse packed windows, resident buffers and summaries
+    #: across calls.  The contract: two inputs with equal tokens draw their
+    #: ops from the SAME append-only sequenced stream over the SAME base,
+    #: so a shared (first_seq .. last_seq) prefix is byte-identical.  None
+    #: (the default) opts the document out of every cache tier.
+    cache_token: Optional[tuple] = None
 
 
 def _refuse_attribution(docs) -> None:

@@ -174,3 +174,114 @@ def test_pipeline_on_card_matches_oracle(cuda):
     want = [workload.oracle_replay(d).summarize().digest() for d in docs]
     assert [s.digest() for s in got] == want
     assert stage["d2h_bytes"] > 0 and stage["h2d_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The resident-buffer kernels (csrc/resident.cu) and the warm path
+# ---------------------------------------------------------------------------
+
+
+def _splice_planes(dtype, K, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    D, T, L = 7, 40, 12
+
+    def planes(width):
+        out = {f: torch.randint(-100, 100, (D, width), generator=gen)
+               for f in mt.MTOps._fields if f != "pvals"}
+        out["pvals"] = torch.randint(-100, 100, (D, width, K), generator=gen)
+        return mt.MTOps(**{f: v.to(dtype).to(device) for f, v in out.items()})
+
+    start = torch.tensor([0, 3, 28, 30, 7, 39, 11], dtype=torch.int32)
+    count = torch.tensor([2, 12, 12, 4, 0, 1, 9], dtype=torch.int32)
+    return planes(T), planes(L), start.to(device), count.to(device)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_splice_kernel_matches_plain_in_place(cuda, dtype, K):
+    from fluidframework_tpu_torch.ops import resident_cuda
+
+    base, rows, start, count = _splice_planes(dtype, K, 5, cuda)
+    kernel = mt.MTOps(*(x.clone() for x in base))
+    plain = mt.MTOps(*(x.clone() for x in base))
+    ptrs = [x.data_ptr() for x in kernel]
+    before = resident_cuda.splice_rows.launches
+    out = resident_cuda.splice_rows(kernel, rows, start, count)
+    torch.cuda.synchronize()
+    assert resident_cuda.splice_rows.launches == before + 1
+    assert out is kernel and [x.data_ptr() for x in out] == ptrs
+    resident_cuda.splice_rows_reference(plain, rows, start, count)
+    for f in mt.MTOps._fields:
+        assert torch.equal(getattr(kernel, f), getattr(plain, f)), f
+    assert not torch.equal(kernel.seq, base.seq)
+
+
+@pytest.mark.parametrize("what", ["ops", "state"])
+def test_widen_kernel_matches_plain(cuda, what):
+    from fluidframework_tpu_torch.ops import resident_cuda
+
+    docs = workload.hard_docs() if what == "state" else \
+        [workload.synth_doc(i, 48) for i in range(24)]
+    st_np, ops_np, meta = mt.pack_mergetree_batch(docs)
+    tree = mt.narrow_ops_for_upload(ops_np, meta) if what == "ops" \
+        else mt.narrow_state_for_upload(st_np, meta)
+    tree = tensors_to(tree, cuda)
+    assert mt.upload_encoding(tree), "the corpus did not narrow"
+    base = torch.from_numpy(meta["doc_base"]).to(cuda)
+    before = resident_cuda.widen_resident.launches
+    got = resident_cuda.widen_resident(tree, base)
+    torch.cuda.synchronize()
+    assert resident_cuda.widen_resident.launches == before + 1
+    want = mt._widen_ops(tree, base) if what == "ops" \
+        else mt._widen_state(tree, base)
+    for f in type(tree)._fields:
+        w, g = getattr(want, f), getattr(got, f)
+        assert (w.dtype, w.shape) == (g.dtype, g.shape), f
+        assert torch.equal(w, g), f
+
+
+def test_warm_sequence_on_card_matches_cpu(cuda, monkeypatch):
+    """Cold, exact and grown calls with every tier on, on the card and on
+    the CPU: the same summaries, byte counters and tier counters, and the
+    grown call splices on the card.  The CPU run takes the card's byte
+    rule for the delta download (a bucketed gather, not exact rows read
+    through a host view), so the d2h counters compare like for like."""
+    from fluidframework_tpu_torch.ops import resident_cuda
+    from fluidframework_tpu_torch.ops.device_cache import DevicePackCache
+    from fluidframework_tpu_torch.ops.pipeline import PackCache
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+
+    streams = [workload.doc_ops(workload.synth_doc(i, 64))
+               for i in range(24)]
+
+    def corpus(grown):
+        docs = []
+        for i, msgs in enumerate(streams):
+            msgs = msgs[:64 if i in grown else 56]
+            docs.append(mt.MergeTreeDocInput(
+                doc_id=f"d{i}", ops=msgs, final_seq=msgs[-1].seq,
+                cache_token=("ep", f"d{i}", 0, "")))
+        return docs
+
+    monkeypatch.setattr(mt, "_host_view", lambda a: None)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        tiers = dict(pack_cache=PackCache(), delta_cache=DeltaExportCache(),
+                     device_cache=DevicePackCache(device=device))
+        calls = []
+        resident_cuda.reset_launches()
+        for grown in ((), (), (0, 9, 17)):
+            stage, stats = {}, {}
+            got = pipelined_mergetree_replay(
+                corpus(set(grown)), chunk_docs=8, stage=stage, stats=stats,
+                device=device, **tiers)
+            calls.append(([s.digest() for s in got], stats,
+                          stage["h2d_bytes"], stage["d2h_bytes"]))
+        runs[device] = (calls, {k: t.stats() for k, t in tiers.items()})
+        if device == "cuda":
+            assert resident_cuda.splice_rows.launches >= 1
+    assert runs["cuda"] == runs["cpu"]
+    want = [workload.oracle_replay(d).summarize().digest()
+            for d in corpus({0, 9, 17})]
+    assert runs["cuda"][0][-1][0] == want

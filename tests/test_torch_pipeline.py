@@ -161,15 +161,6 @@ def test_schedule_keeps_the_callers_order():
         assert ops.seq.dtype.itemsize == 2
 
 
-@pytest.mark.parametrize("arg", ["pack_cache", "delta_cache",
-                                 "device_cache", "pin_resident"])
-def test_unported_cache_tiers_raise(arg):
-    value = True if arg == "pin_resident" else object()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        pipeline.pipelined_mergetree_replay(
-            [workload.synth_doc(0, 8)], device="cpu", **{arg: value})
-
-
 def test_device_handle_on_cpu_returns_numpy_views():
     """The handle's CPU leg: nothing to wait for or copy; the fetch gives
     numpy leaves in the export's structure."""
