@@ -6,7 +6,7 @@ only the port (``fluidframework_tpu_torch``), torch and numpy, builds the
 port's libraries from the sources in the checkout, and runs in order:
 
 0. card and build — the card's name and power limit, then the C++ packer
-   (g++) and the two kernel sources (nvcc) built side by side, with the
+   (g++) and the three kernel sources (nvcc) built side by side, with the
    compiler's register/spill report and the launch each build of the
    kernel takes (blocks and documents per SM) at the pinned, long-tail
    and large shapes;
@@ -50,14 +50,28 @@ port's libraries from the sources in the checkout, and runs in order:
    the resident kernels (``csrc/resident.cu``: the in-place splice and the
    narrow-to-wide migration) held against their plain versions on the
    phase's own resident buffers and timed;
-8. times — each build of the fold kernel alone (CUDA events behind a
+8. SharedTree catch-up at full width (``tree_phase``, after the
+   reference's ``run_tree_rebase``): the pinned tree workload (10,240
+   documents x 48 edits, five shapes) through ``pipelined_tree_replay``
+   cold, exact and grown with the three cache tiers on, the same windows
+   with them off, and ``replay_tree_batch``: every pass equal to its twin,
+   an oracle sample of every shape byte-identical, the byte counters and
+   per-reason fallback counts equal to the JAX package's for the same
+   workload, the exact pass moving nothing up and the digest plane down,
+   the splice on the grown pass, the resident entries equal to the
+   grown chunks' planes, and the splice held against its plain version
+   along the tree's three row axes; both builds of the tree kernel
+   (``csrc/tree_fold.cu``: state out, and with the fused digest) held
+   against the plain fold and digest on a pinned chunk, padding rows
+   included, and timed;
+9. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
-   its bound, and the ``kernels`` line (the four fold builds and the two
-   resident kernels).
+   its bound, and the ``kernels`` line (the four fold builds, the two
+   resident kernels and the two tree builds).
 
 Each driven path (the one-batch entry, the state path, the large-S
-paths, the pipeline, each warm pass) runs with every launch count set to
-0 just before it and read just after.  One JSON object per phase goes to stdout.  Any
+paths, the pipeline, each warm pass, each tree pass) runs with every
+launch count set to 0 just before it and read just after.  One JSON object per phase goes to stdout.  Any
 failure raises (non-zero exit, no result line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
@@ -96,6 +110,29 @@ RESIDENT_SOURCE = "fluidframework_tpu_torch/csrc/resident.cu"
 #: the reference's XLA-traced device code the resident kernels replace
 SPLICE_REPLACES = "fluidframework_tpu/ops/device_cache.py:126"
 WIDEN_REPLACES = "fluidframework_tpu/ops/device_cache.py:229"
+#: the tree phase (the reference's ``run_tree_rebase``,
+#: tools/bench_kernels.py): the pinned SharedTree workload, cold, exact and
+#: grown with the cache tiers on, the same windows with them off
+TREE_DOCS, TREE_EDITS = 10240, 48
+TREE_SOURCE = "fluidframework_tpu_torch/csrc/tree_fold.cu"
+TREE_REPLACES = "fluidframework_tpu/ops/tree_kernel.py:137"
+TREE_DIGEST_REPLACES = ("fluidframework_tpu/ops/tree_kernel.py:137 + "
+                        "fluidframework_tpu/ops/tree_pipeline.py:109")
+#: the JAX package's counters for the same workload and passes, from a CPU
+#: run: its byte counters depend on the layout alone and its per-reason
+#: fallback counts on the semantics alone, so the port must equal them
+TREE_REFERENCE = "BENCH_kernels_cpu_r14.json"
+#: the oracle sample of the tree phase: every shape (``tree_shape`` keys
+#: on idx % 32), then every 40th document
+TREE_ORACLE_HEAD, TREE_ORACLE_EVERY = 32, 40
+#: Integer operations the tree fold needs, charged per unit of its work
+#: on these inputs (``tree_fold_work``): a state word in and out (a load
+#: and a store each way); an edit row (decode, expiry tests, a splice's
+#: reads and writes); an ancestor-walk step (two dependent reads, the
+#: compares and selects); per used row and digest plane, the two lanes'
+#: xor, multiply, add and weight mix.
+TREE_WORD_OPS, TREE_ROW_OPS, TREE_WALK_STEP_OPS, TREE_DIGEST_OPS = \
+    2, 24, 8, 18
 #: H100 SXM device memory rate (bytes/s), NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 #: int32 ALU rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
@@ -149,7 +186,9 @@ def build_all():
                 "mergetree_fold", lambda: _cuda_build.build(
                     "mergetree_fold"))),
             threading.Thread(target=run, args=(
-                "resident", lambda: _cuda_build.build("resident")))]
+                "resident", lambda: _cuda_build.build("resident"))),
+            threading.Thread(target=run, args=(
+                "tree_fold", lambda: _cuda_build.build("tree_fold")))]
     for j in jobs:
         j.start()
     for j in jobs:
@@ -408,22 +447,29 @@ def state_out_bytes(D, S, T, K):
 
 
 def reset_counts():
-    from fluidframework_tpu_torch.ops import fold_cuda, resident_cuda
+    from fluidframework_tpu_torch.ops import (fold_cuda, resident_cuda,
+                                              tree_fold_cuda)
 
     fold_cuda.reset_launches()
     resident_cuda.reset_launches()
+    tree_fold_cuda.reset_launches()
 
 
 def read_counts():
-    """Launches of each build of the fold kernel and of each resident
-    kernel since ``reset_counts``."""
-    from fluidframework_tpu_torch.ops import fold_cuda, resident_cuda
+    """Launches of each build of the fold kernel, of each resident kernel
+    and of each build of the tree kernel since ``reset_counts``."""
+    from fluidframework_tpu_torch.ops import (fold_cuda, resident_cuda,
+                                              tree_fold_cuda)
 
     counts = {f"{entry.__name__}_{where}": n
               for entry in (fold_cuda.fold, fold_cuda.fold_export)
               for where, n in entry.placements.items()}
     counts["splice_rows"] = resident_cuda.splice_rows.launches
     counts["widen_resident"] = resident_cuda.widen_resident.launches
+    counts.update({f"tree_{entry.__name__}_{where}": n
+                   for entry in (tree_fold_cuda.fold,
+                                 tree_fold_cuda.fold_digest)
+                   for where, n in entry.placements.items()})
     return counts
 
 
@@ -697,6 +743,332 @@ def warm_phase(dev, docs, sample, drive, launches):
                 w_plain_ms, w_bound)]
 
 
+def tree_fold_work(state, edits, walk_steps, counts=None):
+    """``(bytes, int_ops)`` the tree fold needs on these inputs: each
+    input plane read once and each output written once (with the digest:
+    the two count planes in, the ``[D, 2]`` digest out), and the
+    operations of ``TREE_*_OPS`` over the state words, the real edit rows,
+    the ancestor-walk steps these inputs took (``walk_steps``, counted by
+    the plain fold) and, with the digest, the used rows of each plane."""
+    import torch
+
+    D, N = state.next.shape
+    C = state.head.shape[1]
+    state_bytes = D * (7 * N + 2 * C) * 4 + D
+    moved = 2 * state_bytes + sum(x.numel() * 4 for x in edits)
+    rows = int(((edits.kind >= 1) & (edits.kind <= 4)).sum())
+    ops = (D * (7 * N + 2 * C) * TREE_WORD_OPS + rows * TREE_ROW_OPS
+           + walk_steps * TREE_WALK_STEP_OPS)
+    if counts is not None:
+        n, c = counts
+        moved += 2 * D * 4 + D * 8
+        used = int(torch.clamp(n, 0, N).sum()) * 7 \
+            + int(torch.clamp(c, 0, C).sum()) * 2
+        ops += used * TREE_DIGEST_OPS
+    return moved, ops, rows
+
+
+def tree_splice_check(dev, cold_packed, grown_packed, resident,
+                      path_splices):
+    """``splice_rows`` at the tree's shapes, on the grown pass's chunks:
+    first, every resident entry must hold its grown chunk's host planes
+    (what the path's splices built); then, along each of the three axes
+    (8 edit planes ``[D, T]``, 7 node planes ``[D, N]``, 2 container
+    planes ``[D, C]``), the suffix rows past the cold chunk's counts are
+    spliced by the kernel and by the plain version into copies of the
+    grown planes whose every element from each document's old count on is
+    bit-flipped.  Both must agree, restore exactly the rows [old, new) and
+    leave the rows from new on flipped, and the cases must be as many as
+    the ``path_splices`` launches the grown pass made.  Returns, per axis,
+    the largest difference, the cases and rows checked, and one case
+    timed."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.convert import tensors_to
+    from fluidframework_tpu_torch.ops import resident_cuda
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops import tree_pipeline as tp
+    from fluidframework_tpu_torch.ops.device_cache import gather_suffix_rows
+
+    def tokens(meta):
+        return tuple(d.cache_token for d in meta["docs"])
+
+    def flipped_from(planes, first):
+        cut = torch.arange(planes[0].shape[1], device=dev)[None, :] \
+            >= first[:, None]
+        return type(planes)(*(torch.where(cut, ~x, x) for x in planes))
+
+    cold_by = {tokens(m): (o, m) for _s, o, m, _t in cold_packed}
+    axes = (("edits", tk.TreeEdits), ("nodes", tp._TreeNodePlanes),
+            ("containers", tp._TreeContPlanes))
+    out = {axis: {"max_abs_err": 0, "cases": 0, "rows": 0}
+           for axis, _g in axes}
+    mirror_err, timed = 0, {}
+    for host_st, host_ed, meta, _t in grown_packed:
+        if tokens(meta) not in cold_by:
+            raise AssertionError("a grown tree chunk has no cold twin")
+        cold_ed, cold_meta = cold_by[tokens(meta)]
+        e = resident._entries[tokens(meta)]
+        mirror_err = max(mirror_err,
+                         tree_diff(tensors_to(host_st, dev), e.state),
+                         tree_diff(tensors_to(host_ed, dev), e.ops))
+        counts = ((tp.TreeDeviceOps.t_rows(cold_ed),
+                   tp.TreeDeviceOps.t_rows(host_ed)),
+                  (cold_meta["n_nodes"], meta["n_nodes"]),
+                  (cold_meta["n_cont"], meta["n_cont"]))
+        for (axis, group), host, (old, new) in zip(
+                axes, (host_ed, host_st, host_st), counts):
+            old = np.asarray(old, np.int32)
+            new = np.asarray(new, np.int32)
+            rows_np, L = gather_suffix_rows(group, host, old, new)
+            if not np.any(new > old) or rows_np is None:
+                continue
+            rows = group(**{f: torch.from_numpy(v).to(dev)
+                            for f, v in rows_np.items()})
+            start = torch.from_numpy(old).to(dev)
+            count = torch.from_numpy(new - old).to(dev)
+            full = group(*(torch.from_numpy(np.ascontiguousarray(
+                getattr(host, f))).to(dev) for f in group._fields))
+            unspliced = flipped_from(full, start)
+            kernel = group(*(x.clone() for x in unspliced))
+            plain = group(*(x.clone() for x in unspliced))
+            resident_cuda.splice_rows(kernel, rows, start, count)
+            resident_cuda.splice_rows_reference(plain, rows, start, count)
+            n_rows = int((new - old).sum())
+            if not tree_diff(unspliced, kernel):
+                raise AssertionError(f"splice_rows wrote no {axis} row of "
+                                     f"the suffix")
+            rec = out[axis]
+            restored = flipped_from(full, torch.from_numpy(new).to(dev))
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     tree_diff(plain, kernel),
+                                     tree_diff(restored, kernel))
+            rec["cases"] += 1
+            rec["rows"] += n_rows
+            rec.setdefault("shape", [*full[0].shape, L])
+            timed.setdefault(axis, (kernel, plain, rows, start, count,
+                                    n_rows))
+    if mirror_err:
+        raise AssertionError(f"resident tree entries differ from the grown "
+                             f"chunks' host planes: {mirror_err}")
+    cases = sum(rec["cases"] for rec in out.values())
+    if cases != path_splices:
+        raise AssertionError(f"{cases} tree splices checked, but the grown "
+                             f"pass launched {path_splices}")
+    for axis, rec in out.items():
+        if not rec["cases"]:
+            raise AssertionError(f"no grown tree chunk spliced {axis} rows")
+        if rec["max_abs_err"]:
+            raise AssertionError(f"splice_rows != plain along the tree's "
+                                 f"{axis} axis: {rec['max_abs_err']}")
+        kernel, plain, rows, start, count, n_rows = timed[axis]
+        rec["ms"], rec["runs_ms"] = time_call(
+            lambda: resident_cuda.splice_rows(kernel, rows, start, count))
+        _x, rec["plain_ms"] = timed_once(
+            lambda: resident_cuda.splice_rows_reference(plain, rows, start,
+                                                        count))
+        rec["bound"] = bytes_bound(
+            2 * n_rows * 4 * len(kernel) + nbytes((start, count)),
+            n_rows * len(kernel))
+    return out
+
+
+def tree_phase(dev, drive, launches):
+    """Phase 8: SharedTree catch-up at full width, as the reference's
+    ``run_tree_rebase`` (tools/bench_kernels.py) drives it: the pinned
+    workload (10,240 documents x 48 edits, five shapes) through
+    ``pipelined_tree_replay`` cold, exact and grown with the three cache
+    tiers on, the base and grown windows with them off, and
+    ``replay_tree_batch`` over the grown windows.  Gates: every pass equal
+    to its twin (tiers on = off = one batch), an oracle sample
+    byte-identical, the per-pass byte counters and per-reason fallback
+    counts equal to the JAX package's for the same workload, the exact
+    pass moving no bytes up and only the digest plane down, the splice on
+    the grown pass and held against its plain version at the tree's
+    shapes (``tree_splice_check``); then both builds of the tree kernel
+    against the plain fold and digest on one pinned chunk, every plane
+    with its padding rows, and timed.  Returns the kernels' rows of the
+    ``kernels`` line and the splice's record on the tree path."""
+    import torch
+
+    from fluidframework_tpu_torch.convert import tensors_to
+    from fluidframework_tpu_torch.ops import tree_fold_cuda
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops import tree_pipeline as tp
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    with open(os.path.join(REPO, TREE_REFERENCE)) as f:
+        ref = json.load(f)["tree_rebase"]
+    t = time.perf_counter()
+    base, grown = tw.tree_windows(TREE_DOCS, TREE_EDITS)
+    synth_s = time.perf_counter() - t
+    shapes = {name: sum(1 for i in range(TREE_DOCS)
+                        if tw.tree_shape(i) == name) for name in tw.SHAPES}
+    on = {"pack_cache": tp.tree_pack_cache(),
+          "delta_cache": DeltaExportCache(),
+          "device_cache": tp.tree_device_cache(device=dev)}
+    passes, digests_of = {}, {}
+
+    def one_pass(name, docs, tiers):
+        stage, stats, packed = {}, {}, []
+        got, wall = drive(f"tree_{name}", lambda: tp.pipelined_tree_replay(
+            docs, chunk_docs=CHUNK_DOCS, stats=stats, stage=stage,
+            packed_out=packed, device=dev, **tiers))
+        rec = {"wall_s": wall,
+               "busy_s": {k: v for k, v in stage.items()
+                          if not k.endswith("_bytes")},
+               "h2d_bytes": stage["h2d_bytes"],
+               "d2h_bytes": stage["d2h_bytes"],
+               "delta_docs": stats.get("delta_docs", 0), "stats": stats,
+               "chunks": len(packed), "launches": launches[f"tree_{name}"],
+               "tiers": {k: v.stats() for k, v in tiers.items()}}
+        emit({"phase": "tree_pass", "pass": name, **rec})
+        passes[name] = rec
+        digests_of[name] = [x.digest() for x in got]
+        return packed
+
+    cold_packed = one_pass("cold", base, on)
+    one_pass("exact", base, on)
+    grown_packed = one_pass("grown", grown, on)
+    splice = tree_splice_check(dev, cold_packed, grown_packed,
+                               on["device_cache"],
+                               launches["tree_grown"]["splice_rows"])
+    one_pass("off_base", base, {})
+    one_pass("off_grown", grown, {})
+    batch, batch_s = drive("tree_batch", lambda: tk.replay_tree_batch(
+        grown, device=dev))
+    digests_of["batch"] = [x.digest() for x in batch]
+
+    agree = {"cold=off_base": digests_of["cold"] == digests_of["off_base"],
+             "exact=cold": digests_of["exact"] == digests_of["cold"],
+             "grown=off_grown":
+                 digests_of["grown"] == digests_of["off_grown"],
+             "grown=batch": digests_of["grown"] == digests_of["batch"]}
+    sample = list(range(TREE_ORACLE_HEAD)) + list(
+        range(TREE_ORACLE_EVERY, TREE_DOCS, TREE_ORACLE_EVERY))
+    t = time.perf_counter()
+    bad = [(label, i) for label, docs, key in (
+        ("base", base, "cold"), ("grown", grown, "grown"))
+        for i in sample if digests_of[key][i]
+        != tk.oracle_fallback_summary(docs[i]).digest()]
+    oracle_s = time.perf_counter() - t
+    # the per-pass counters against the JAX package's (the grown pass's
+    # d2h is a bucketed gather on the card, exact rows on the CPU: shown)
+    want = {"cold": ("cold", True), "exact": ("warm_exact", True),
+            "grown": ("warm_grown", False), "off_base": ("caches_off", True)}
+    counters = {}
+    for name, (ref_name, with_d2h) in want.items():
+        got_c = {"h2d_bytes": passes[name]["h2d_bytes"],
+                 "stats": passes[name]["stats"]}
+        want_c = {"h2d_bytes": ref[ref_name]["h2d_bytes"],
+                  "stats": ref[ref_name]["stats"]}
+        if with_d2h:
+            got_c["d2h_bytes"] = passes[name]["d2h_bytes"]
+            want_c["d2h_bytes"] = ref[ref_name]["d2h_bytes"]
+        counters[name] = {"equal": got_c == want_c, "port": got_c,
+                          "reference": want_c}
+    dispatched = sum(1 for d in base if not tk.known_tree_fallback(d))
+    chunks = passes["cold"]["chunks"]
+    k5_path = {"tree_cold": ("tree_fold_digest_smem", chunks),
+               "tree_exact": ("tree_fold_digest_smem", chunks),
+               "tree_grown": ("tree_fold_digest_smem", chunks),
+               "tree_off_base": ("tree_fold_smem", chunks),
+               "tree_off_grown": ("tree_fold_smem", chunks),
+               "tree_batch": ("tree_fold_smem", 1)}
+    path_ok = {p: launches[p][k] == n for p, (k, n) in k5_path.items()}
+
+    # K5 against its plain versions on one pinned chunk, both builds
+    host_st, host_ed, meta, _tag = cold_packed[0]
+    st, ed = tensors_to(host_st, dev), tensors_to(host_ed, dev)
+    counts = (torch.from_numpy(meta["n_nodes"]).to(dev),
+              torch.from_numpy(meta["n_cont"]).to(dev))
+    work = {}
+    want_final = tk.tree_fold_reference(st, ed, work)
+    want_dig = tp.tree_doc_digests(want_final, *counts)
+    got_final = tree_fold_cuda.fold(st, ed)
+    got_final2, got_dig = tree_fold_cuda.fold_digest(st, ed, *counts)
+    torch.cuda.synchronize()
+    err_fold = tree_diff(want_final, got_final)
+    err_digest = max(tree_diff(want_final, got_final2),
+                     leaves_diff(want_dig, got_dig))
+    overflowed = int(want_final.overflow.sum())
+    D, N = host_st.next.shape
+    C, T = host_st.head.shape[1], host_ed.kind.shape[1]
+    rows = {}
+    for name, build, fn, plain in (
+            ("tree_fold", "tree_fold_smem",
+             lambda: tree_fold_cuda.fold(st, ed),
+             lambda: tk.tree_fold_reference(st, ed)),
+            ("tree_fold_digest", "tree_fold_digest_smem",
+             lambda: tree_fold_cuda.fold_digest(st, ed, *counts),
+             lambda: tp.tree_doc_digests(tk.tree_fold_reference(st, ed),
+                                         *counts))):
+        ms, runs = time_call(fn)
+        call_ms, _ = time_call(fn, spin=False)
+        _out, plain_ms = timed_once(plain)
+        moved, ops, real_rows = tree_fold_work(
+            st, ed, work["walk_steps"],
+            counts if name == "tree_fold_digest" else None)
+        bound = bytes_bound(moved, ops)
+        path = "tree_cold" if name == "tree_fold_digest" else "tree_off_base"
+        rows[name] = {
+            "name": name, "route": "cuda", "source": TREE_SOURCE,
+            "replaces": TREE_DIGEST_REPLACES if name == "tree_fold_digest"
+            else TREE_REPLACES,
+            "placement": tree_fold_cuda.placement(N, C),
+            "launches": launches[path][build], "path": path,
+            "timed_shape": [D, N, C, T],
+            "max_abs_err": err_digest if name == "tree_fold_digest"
+            else err_fold, "tolerance": 0, "ms": ms, "runs_ms": runs,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bound": bound, "real_edit_rows": real_rows,
+            "walk_steps": work["walk_steps"], "library_ms": None,
+            "library": "none: no one PyTorch call computes this fold"}
+        rows[name]["parity"] = rows[name]["max_abs_err"] == 0
+
+    emit({"phase": "tree", "docs": TREE_DOCS, "edits": TREE_EDITS,
+          "shapes": shapes, "grown_docs": TREE_DOCS // GROW_EVERY,
+          "synth_s": synth_s, "batch_s": batch_s,
+          "oracle_sample": len(sample), "oracle_s": oracle_s,
+          "oracle_mismatches": bad[:8], "agree": agree,
+          "reference_counters": counters, "dispatched_docs": dispatched,
+          "k5_launches_ok": path_ok, "overflowed_in_chunk": overflowed,
+          "k6_launches_grown": launches["tree_grown"]["splice_rows"],
+          "splice_rows": splice,
+          "k5": {k: {x: v for x, v in r.items() if x not in (
+              "name", "route", "source", "replaces")}
+              for k, r in rows.items()}})
+    if not all(agree.values()):
+        raise AssertionError(f"tree passes disagree: {agree}")
+    if bad:
+        raise AssertionError(f"tree summaries differ from the oracle: "
+                             f"{bad[:8]}")
+    if not all(c["equal"] for c in counters.values()):
+        raise AssertionError(f"tree counters differ from the reference's: "
+                             f"{counters}")
+    exact = passes["exact"]
+    if exact["h2d_bytes"] != 0 or exact["d2h_bytes"] != 8 * dispatched:
+        raise AssertionError(f"exact tree pass moved h2d "
+                             f"{exact['h2d_bytes']} / d2h "
+                             f"{exact['d2h_bytes']} B; want 0 / "
+                             f"{8 * dispatched}")
+    if launches["tree_grown"]["splice_rows"] < 1:
+        raise AssertionError("no splice on the grown tree pass")
+    if not all(path_ok.values()):
+        raise AssertionError(f"tree kernel launches off their paths: "
+                             f"{path_ok} {launches}")
+    if err_fold or err_digest:
+        raise AssertionError(f"tree kernel != plain: fold {err_fold}, "
+                             f"digest build {err_digest}")
+    return [rows["tree_fold"], rows["tree_fold_digest"]], {
+        "launches": launches["tree_grown"]["splice_rows"],
+        "path": "tree_grown", **splice}
+
+
 def main() -> int:
     import torch
 
@@ -744,7 +1116,7 @@ def main() -> int:
            for S in (PINNED_S, TAIL_S, LARGE_S)
            for k in ("fold", "fold_export")]
     ptxas = {}
-    for source in ("mergetree_fold", "resident"):
+    for source in ("mergetree_fold", "resident", "tree_fold"):
         with open(_cuda_build.library_path(source) + ".log") as f:
             ptxas[source] = [ln.strip() for ln in f if "registers" in ln
                              or "spill" in ln or "smem" in ln]
@@ -1021,7 +1393,11 @@ def main() -> int:
     # -- 7. the warm catch-up path at full width ---------------------------
     k6_rows = warm_phase(dev, docs, sample, drive, launches)
 
-    # -- 8. times ----------------------------------------------------------
+    # -- 8. SharedTree catch-up at full width ------------------------------
+    k5_rows, tree_splice = tree_phase(dev, drive, launches)
+    k6_rows[0]["tree_grown"] = tree_splice
+
+    # -- 9. times ----------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -1109,7 +1485,7 @@ def main() -> int:
         entry("fold_export_gmem", "gmem", "large_pipeline",
               [wave, lg_S, lg_T, 1], parity["fold_export_gmem"], lg_fx[0],
               lg_fx[2], lg_fx[3], lg_fx[4]),
-    ] + [dict(r, card=card) for r in k6_rows]})
+    ] + [dict(r, card=card) for r in k6_rows + k5_rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

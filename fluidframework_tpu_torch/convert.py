@@ -1,9 +1,10 @@
 """Carry packed arrays and document inputs across.
 
 Everything is read by attribute name, so any object with the ``MTState``
-/ ``MTOps`` field names holding numpy arrays converts — the port's own
-``pack_mergetree_batch`` output and the JAX package's (which is numpy as
-well) alike — and no import of the JAX package is needed.
+/ ``MTOps`` (or ``TreeState`` / ``TreeEdits``) field names holding numpy
+arrays converts — the port's own packers' output and the JAX package's
+(which is numpy as well) alike — and no import of the JAX package is
+needed.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ import numpy as np
 import torch
 
 from .ops.mergetree_kernel import MergeTreeDocInput
+from .ops.tree_kernel import TreeDocInput, TreeEdits, TreeState
 from .protocol.messages import MessageType, SequencedMessage
+from .protocol.summary import SummaryBlob, SummaryTree
 
 
 def tensors_to(obj, device):
@@ -58,3 +61,39 @@ def doc_input_from(obj) -> MergeTreeDocInput:
         attribution=obj.attribution,
         cache_token=getattr(obj, "cache_token", None),
     )
+
+
+def summary_tree_from(obj) -> SummaryTree:
+    """A port ``SummaryTree`` copied from any summary tree with the same
+    shape (``children`` of sub-trees and blobs with ``content`` bytes)."""
+    out = SummaryTree()
+    for name, child in obj.children.items():
+        out.children[name] = summary_tree_from(child) \
+            if hasattr(child, "children") else SummaryBlob(child.content)
+    return out
+
+
+def tree_doc_input_from(obj) -> TreeDocInput:
+    """A port ``TreeDocInput`` copied from any object with the same
+    attribute names (the JAX package's included): messages rebuilt as
+    the port's, the base summary as the port's ``SummaryTree``."""
+    base = obj.base_summary
+    return TreeDocInput(
+        doc_id=obj.doc_id,
+        ops=[_message_from(m) for m in obj.ops],
+        base_summary=None if base is None else summary_tree_from(base),
+        final_seq=obj.final_seq,
+        final_msn=obj.final_msn,
+        attribution=obj.attribution,
+        cache_token=getattr(obj, "cache_token", None),
+    )
+
+
+def tree_arrays_from(state, edits):
+    """``(TreeState, TreeEdits)`` of numpy planes, dtypes kept, from any
+    pair with those field names (the JAX package's ``pack_tree_batch``
+    output included)."""
+    return (TreeState(**{f: np.asarray(getattr(state, f))
+                         for f in TreeState._fields}),
+            TreeEdits(**{f: np.asarray(getattr(edits, f))
+                         for f in TreeEdits._fields}))

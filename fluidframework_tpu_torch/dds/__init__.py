@@ -1,3 +1,3 @@
-"""CPU oracle for SharedString (copies of the JAX package's merge-tree,
-interval and shared-object modules): the byte-identity judge and the
-fallback path for documents the device fold does not take."""
+"""CPU oracles (copies of the JAX package's merge-tree, interval, shared-
+object and SharedTree modules): the byte-identity judges and the fallback
+path for documents the device folds do not take."""

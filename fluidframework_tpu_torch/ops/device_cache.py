@@ -68,7 +68,7 @@ from .mergetree_kernel import MTOps, resolve_device
 # upload leg pushes over h2d" byte rule, _doc_window / match_windows THE
 # window-identity rules, MERGETREE_FAMILY the bypass and aux rules.
 from .pipeline import (MERGETREE_FAMILY, _doc_window, _np_nbytes,
-                       match_windows)
+                       map_leaves, match_windows)
 from .resident_cuda import splice_rows, widen_resident
 
 
@@ -256,12 +256,12 @@ class MergeTreeDeviceOps:
 class DevicePackCache:
     """Byte-bounded LRU of device-resident packed chunk tensors (see the
     module docstring).  ``device`` places every entry (the card by
-    default); ``pin_max_bytes`` budgets the pinned resident-state tier.
-    The family is the merge-tree one (the reference's ``device_ops`` plug
-    point returns with the port's tree tiers)."""
+    default); ``pin_max_bytes`` budgets the pinned resident-state tier;
+    ``device_ops`` selects the family (default: merge-tree; the tree
+    family's is ``tree_pipeline.TreeDeviceOps``)."""
 
     def __init__(self, max_bytes: int = 192 << 20, device="cuda",
-                 pin_max_bytes: int = 64 << 20) -> None:
+                 pin_max_bytes: int = 64 << 20, device_ops=None) -> None:
         self.max_bytes = int(max_bytes)
         #: device-byte budget for the PINNED tier (resident doc state of
         #: the streaming fold).  Separate from ``max_bytes`` so a wide
@@ -269,7 +269,8 @@ class DevicePackCache:
         #: vice versa.
         self.pin_max_bytes = int(pin_max_bytes)
         self.device = resolve_device(device)
-        self._fam = MergeTreeDeviceOps()
+        self._fam = device_ops if device_ops is not None \
+            else MergeTreeDeviceOps()
         self._lock = threading.Lock()
         # tokens -> _ResidentEntry (insertion order = LRU order)
         self._entries: dict = {}  # guarded-by: _lock
@@ -294,25 +295,23 @@ class DevicePackCache:
         return x.to(self.device, copy=True)
 
     def put_tree(self, tree):
-        if tree is None:
-            return None
-        if isinstance(tree, tuple):
-            return type(tree)(*(self.put(leaf) for leaf in tree))
-        return self.put(tree)
+        """``put`` over every leaf of a namedtuple, a plain tuple (a
+        family's aux counts) or a single array."""
+        return map_leaves(self.put, tree)
+
+    @staticmethod
+    def _host_copy(leaf: torch.Tensor) -> torch.Tensor:
+        if leaf.device.type == "cuda":
+            host = torch.empty(leaf.shape, dtype=leaf.dtype,
+                               pin_memory=True)
+            host.copy_(leaf)
+            return host
+        return leaf.clone()
 
     def _host_tree(self, tree):
         """Host copies of a resident tree (pinned when it lies on the
         card); the device memory frees once the last reference dies."""
-        if tree is None:
-            return None
-        if isinstance(tree, tuple):
-            return type(tree)(*(self._host_tree(leaf) for leaf in tree))
-        if tree.device.type == "cuda":
-            host = torch.empty(tree.shape, dtype=tree.dtype,
-                               pin_memory=True)
-            host.copy_(tree)
-            return host
-        return tree.clone()
+        return map_leaves(self._host_copy, tree)
 
     # -- the pinned resident-state tier ----------------------------------------
 

@@ -5,8 +5,8 @@ The port's copy of ``fluidframework_tpu/ops/family.py``.  Everything the
 pipeline does per chunk — pack, tier-2 window reuse, upload (tier 2.5),
 dispatch, the tier-0 digest handshake, download, extraction, fallback
 routing — goes through these hooks, and ``pipelined_mergetree_replay`` is
-one instance of the generic fold.  Only the merge-tree instance is ported
-so far.
+one instance of the generic fold, ``pipelined_tree_replay``
+(``ops/tree_pipeline.py``) the second.
 
 A family's ``(state, ops)`` are namedtuples of ``[D, ...]`` planes with
 the document axis leading — the invariant every generic helper
@@ -50,8 +50,9 @@ class KernelFamily:
       - ``narrow(chunk, state, ops, meta)`` → ``(state_u | None,
         ops_u)``: the h2d transfer encodings (state None for a cold
         chunk);
-      - ``aux(meta, digest)`` → the host array the dispatch needs next
-        to state/ops (merge-tree: the per-document arena base);
+      - ``aux(meta, digest)`` → the host array (or tuple of arrays) the
+        dispatch needs next to state/ops (merge-tree: the per-document
+        arena base; tree: the used node and container row counts);
       - ``dispatch(state_u, ops_u, meta, digest, aux_dev)`` → export
         leaves on the device;
       - ``split_digest(export, want)`` → ``(core, digest | None)``;

@@ -579,6 +579,19 @@ def _nbytes(handle) -> int:
     return int(sum(leaf.nbytes for leaf in leaves))
 
 
+def map_leaves(fn, tree):
+    """``fn`` over every leaf of a tree of arrays or tensors: a namedtuple
+    keeps its type, a plain tuple stays a tuple (a family's aux may be
+    either, or a single leaf), None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        leaves = [map_leaves(fn, x) for x in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") \
+            else tuple(leaves)
+    return fn(tree)
+
+
 def _np_nbytes(tree) -> int:
     """Bytes of the NUMPY leaves of a state/ops tree: what the upload leg
     pushes over the h2d link."""
@@ -991,8 +1004,10 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                     # binary): the plain upload.
                     state_d = tensors_to(state, device)
                     ops_d = tensors_to(ops, device)
-                    base_dev = torch.from_numpy(np.ascontiguousarray(
-                        family.aux(meta, want_digest))).to(device)
+                    base_dev = map_leaves(
+                        lambda a: torch.from_numpy(
+                            np.ascontiguousarray(a)).to(device),
+                        family.aux(meta, want_digest))
                 _bump(stage, "upload", t0)
                 t0 = perf_counter()
                 ex = family.dispatch(state_d, ops_d, meta, want_digest,

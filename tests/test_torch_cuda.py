@@ -285,3 +285,220 @@ def test_warm_sequence_on_card_matches_cpu(cuda, monkeypatch):
     want = [workload.oracle_replay(d).summarize().digest()
             for d in corpus({0, 9, 17})]
     assert runs["cuda"][0][-1][0] == want
+
+
+# ---------------------------------------------------------------------------
+# The SharedTree edit-fold kernel (csrc/tree_fold.cu) and the tree tiers
+# ---------------------------------------------------------------------------
+
+
+def _tree_corpora():
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    out = {f"crafted-{k}": v for k, v in tw.crafted_tree_cases().items()}
+    for seed in range(3):
+        out[f"random-{seed}"] = tw.random_tree_arrays(seed, 37, 64, 32, 80)
+    base, grown = tw.tree_windows(96, 48)
+    for name, docs in (("workload-base", base), ("workload-grown", grown)):
+        st, ed, _meta = tk.pack_tree_batch(docs)
+        out[name] = (st, ed)
+    return out
+
+
+def _tree_counts(state, seed=0):
+    """Used-row counts for the digest: from none to past the plane."""
+    gen = torch.Generator().manual_seed(seed)
+    D, N = state.next.shape
+    C = state.head.shape[1]
+    n = torch.randint(0, N + 4, (D,), generator=gen, dtype=torch.int32)
+    c = torch.randint(0, C + 4, (D,), generator=gen, dtype=torch.int32)
+    return n, c
+
+
+def _assert_tree_equal(want, got):
+    for f in type(want)._fields:
+        w, g = getattr(want, f), getattr(got, f)
+        assert (w.dtype, w.shape) == (g.dtype, g.shape), f
+        assert torch.equal(w, g), f
+
+
+@pytest.mark.parametrize("where", ["smem", "gmem"])
+@pytest.mark.parametrize("build", ["fold", "fold_digest"])
+def test_tree_kernel_matches_plain_fold(cuda, build, where, monkeypatch):
+    """Both builds, in both placements (device memory forced on these
+    small forests), against the plain fold and digest: every plane, padding
+    rows included, and the digest, bit for bit; the inputs unwritten."""
+    from fluidframework_tpu_torch.ops import tree_fold_cuda
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops.tree_pipeline import tree_doc_digests
+
+    monkeypatch.setattr(tree_fold_cuda, "placement", lambda N, C: where)
+    entry = getattr(tree_fold_cuda, build)
+    for name, (st_np, ed_np) in _tree_corpora().items():
+        state, edits = tensors_to(st_np, cuda), tensors_to(ed_np, cuda)
+        keep = tk.TreeState(*(x.clone() for x in state))
+        n, c = (x.to(cuda) for x in _tree_counts(state))
+        before = entry.placements[where]
+        if build == "fold":
+            got = entry(state, edits)
+        else:
+            got, dig = entry(state, edits, n, c)
+        torch.cuda.synchronize()
+        assert entry.placements[where] == before + 1, name
+        want = tk.tree_fold_reference(state, edits)
+        _assert_tree_equal(want, got)
+        _assert_tree_equal(keep, state)
+        if build == "fold_digest":
+            assert torch.equal(tree_doc_digests(want, n, c), dig), name
+
+
+@pytest.mark.parametrize("build", ["fold", "fold_digest"])
+def test_tree_kernel_counts_no_launch_for_an_empty_chunk(cuda, build):
+    """A chunk of no documents on the card launches nothing and leaves the
+    entry's counts as they were."""
+    from fluidframework_tpu_torch.ops import tree_fold_cuda
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    st_np, ed_np = tk.empty_tree_arrays(0, 16, 8, 16)
+    state = tensors_to(tk.TreeState(**st_np), cuda)
+    edits = tensors_to(tk.TreeEdits(**ed_np), cuda)
+    entry = getattr(tree_fold_cuda, build)
+    before = (entry.launches, dict(entry.placements))
+    if build == "fold":
+        got = entry(state, edits)
+    else:
+        n = torch.zeros((0,), dtype=torch.int32, device=cuda)
+        got, dig = entry(state, edits, n, n.clone())
+        assert dig.shape == (0, 2)
+    assert got.next.shape == (0, 16)
+    assert (entry.launches, entry.placements) == before
+
+
+def test_tree_kernel_flags_the_deep_walk(cuda):
+    """The crafted deep chain on the card: a hit inside the 64-step walk
+    still overflows, and a target past the walk's reach moves."""
+    from fluidframework_tpu_torch.ops import tree_fold_cuda
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    st_np, ed_np = tw.crafted_tree_cases()["deep_chain"]
+    got = tree_fold_cuda.fold(tensors_to(st_np, cuda),
+                              tensors_to(ed_np, cuda))
+    assert got.overflow.tolist() == [True, True]
+    assert int(got.node_container[0, 70]) == 69
+    assert int(got.node_container[1, 3]) == 75
+
+
+def test_tree_splice_along_three_axes_matches_plain(cuda):
+    """A grown tree chunk through tier 2.5 on the card: the resident
+    entry splices its edit, node and container rows in place (three
+    ``splice_rows`` launches), each axis equal to ``splice_rows_reference``
+    on a copy, and the entry equals the grown chunk's host arrays."""
+    from fluidframework_tpu_torch.ops import resident_cuda
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops import tree_pipeline as tp
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    from fluidframework_tpu_torch.protocol.messages import (
+        MessageType, SequencedMessage)
+
+    def ins(parent, field, nid):
+        return {"kind": "insert", "parent": parent, "field": field,
+                "anchor": None,
+                "content": [{"id": nid, "type": "n", "value": 1}]}
+
+    # nested inserts in the suffix: new container rows too
+    nested = [SequencedMessage(
+        seq=s, client_id="c0", client_seq=s, ref_seq=s - 1, min_seq=0,
+        type=MessageType.OP, contents={"edits": [e]}) for s, e in enumerate(
+            [ins("", "a", "x"), ins("", "a", "y"), ins("x", "k", "z"),
+             ins("y", "j", "w")], 1)]
+    base, grown = tw.tree_windows(24, 48, grow_every=2)
+    base = [d for d in base if not tk.known_tree_fallback(d)] \
+        + [tw.tree_doc(99, nested, 2)]
+    grown = [d for d in grown if not tk.known_tree_fallback(d)] \
+        + [tw.tree_doc(99, nested, 4)]
+    pack = tp.tree_pack_cache()
+    cache = tp.tree_device_cache(device=cuda)
+    st0, ed0, meta0 = pack.pack(base)
+    cache.acquire(st0, ed0, meta0)
+    (entry,) = cache._entries.values()
+    before = {g: tuple(x.clone() for x in planes) for g, planes in (
+        ("edits", entry.ops),
+        ("node", tp._group(tp._TreeNodePlanes, entry.state)),
+        ("cont", tp._group(tp._TreeContPlanes, entry.state)))}
+    st1, ed1, meta1 = pack.pack(grown)
+    assert meta1["_pack_lineage"][0] == "suffix"
+    assert (meta1["n_cont"] > meta0["n_cont"]).any()
+    resident_cuda.reset_launches()
+    _s, _e, aux, up = cache.acquire(st1, ed1, meta1)
+    torch.cuda.synchronize()
+    assert cache.stats()["spliced"] == 1
+    assert resident_cuda.splice_rows.launches == 3
+    assert up < sum(x.nbytes for x in st1) + sum(x.nbytes for x in ed1)
+    for group, host, old, new, planes in (
+            ("edits", ed1, tp.TreeDeviceOps.t_rows(ed0),
+             tp.TreeDeviceOps.t_rows(ed1), tk.TreeEdits),
+            ("node", tp._group(tp._TreeNodePlanes, st1), meta0["n_nodes"],
+             meta1["n_nodes"], tp._TreeNodePlanes),
+            ("cont", tp._group(tp._TreeContPlanes, st1), meta0["n_cont"],
+             meta1["n_cont"], tp._TreeContPlanes)):
+        from fluidframework_tpu_torch.ops.device_cache import (
+            gather_suffix_rows)
+
+        rows_np, _L = gather_suffix_rows(planes, host, old, new)
+        rows = planes(**{f: torch.from_numpy(v).to(cuda)
+                         for f, v in rows_np.items()})
+        start = torch.from_numpy(old).to(cuda)
+        count = torch.from_numpy(new - old).to(cuda)
+        kernel = planes(*(x.clone() for x in before[group]))
+        plain = planes(*(x.clone() for x in before[group]))
+        resident_cuda.splice_rows(kernel, rows, start, count)
+        resident_cuda.splice_rows_reference(plain, rows, start, count)
+        _assert_tree_equal(plain, kernel)
+        _assert_tree_equal(planes(*(torch.from_numpy(
+            np_.copy()).to(cuda) for np_ in host)), kernel)
+    _assert_tree_equal(tensors_to(ed1, cuda), entry.ops)
+    _assert_tree_equal(tensors_to(st1, cuda), entry.state)
+    assert [x.tolist() for x in aux] == \
+        [meta1["n_nodes"].tolist(), meta1["n_cont"].tolist()]
+
+
+def test_tree_warm_sequence_on_card_matches_cpu(cuda, monkeypatch):
+    """Cold, exact and grown tree calls with every tier on, on the card
+    and on the CPU (the CPU with the card's delta byte rule): the same
+    summaries, byte counters and tier counters, the kernel and the splice
+    launched on the card, and the grown call equal to the oracle."""
+    from fluidframework_tpu_torch.ops import resident_cuda, tree_fold_cuda
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops import tree_pipeline as tp
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    base, grown = tw.tree_windows(40, 48)
+    monkeypatch.setattr(mt, "_host_view", lambda a: None)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        tiers = dict(pack_cache=tp.tree_pack_cache(),
+                     delta_cache=DeltaExportCache(),
+                     device_cache=tp.tree_device_cache(device=device))
+        calls = []
+        resident_cuda.reset_launches()
+        tree_fold_cuda.reset_launches()
+        for docs in (base, base, grown):
+            stage, stats = {}, {}
+            got = tp.pipelined_tree_replay(
+                docs, chunk_docs=16, stage=stage, stats=stats,
+                device=device, **tiers)
+            calls.append(([s.digest() for s in got], stats,
+                          stage["h2d_bytes"], stage["d2h_bytes"]))
+        runs[device] = (calls, {k: t.stats() for k, t in tiers.items()})
+        if device == "cuda":
+            assert tree_fold_cuda.fold_digest.launches >= 3
+            assert resident_cuda.splice_rows.launches >= 1
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"][0][-1][0] == [
+        tk.oracle_fallback_summary(d).digest() for d in grown]
+    got = tk.replay_tree_batch(grown)
+    assert [s.digest() for s in got] == runs["cuda"][0][-1][0]

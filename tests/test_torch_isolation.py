@@ -107,3 +107,46 @@ def test_wrapper_checks_what_the_kernel_reads():
     for st, op, msg in bad:
         with pytest.raises(ValueError, match=msg):
             fold_cuda._check(st, op, cpu)
+
+
+def test_tree_port_replays_with_jax_and_the_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'fluidframework_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fluidframework_tpu_torch.ops.tree_kernel import (\n"
+        "    oracle_fallback_summary, replay_tree_batch)\n"
+        "from fluidframework_tpu_torch.ops.tree_pipeline import (\n"
+        "    pipelined_tree_replay)\n"
+        "from fluidframework_tpu_torch.testing.tree_workload import (\n"
+        "    tree_windows)\n"
+        "base, grown = tree_windows(8, 24)\n"
+        "want = [oracle_fallback_summary(d).digest() for d in grown]\n"
+        "got = replay_tree_batch(grown, device='cpu')\n"
+        "assert [s.digest() for s in got] == want\n"
+        "got = pipelined_tree_replay(grown, chunk_docs=4, device='cpu')\n"
+        "assert [s.digest() for s in got] == want\n"
+        "assert not any(m.startswith(('jax', 'fluidframework_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["replay_tree_batch",
+                                   "pipelined_tree_replay"])
+def test_tree_entry_points_without_device_raise_when_no_cuda(monkeypatch,
+                                                             entry):
+    from fluidframework_tpu_torch.ops import tree_kernel, tree_pipeline
+    from fluidframework_tpu_torch.testing.tree_workload import tree_windows
+
+    fn = getattr(tree_kernel, entry, None) or getattr(tree_pipeline, entry)
+    base, _grown = tree_windows(4, 24)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(base[3:])
