@@ -6,7 +6,7 @@ only the port (``fluidframework_tpu_torch``), torch and numpy, builds the
 port's libraries from the sources in the checkout, and runs in order:
 
 0. card and build — the card's name and power limit, then the C++ packer
-   (g++) and the three kernel sources (nvcc) built side by side, with the
+   (g++) and the four kernel sources (nvcc) built side by side, with the
    compiler's register/spill report and the launch each build of the
    kernel takes (blocks and documents per SM) at the pinned, long-tail
    and large shapes;
@@ -39,7 +39,7 @@ port's libraries from the sources in the checkout, and runs in order:
    ``replay_mergetree_batch``'s, the oracle sample identical, the stage
    dict, and ``h2d_bytes`` / ``d2h_bytes`` equal to the values worked out
    from ``export_layout_rows`` and the narrow dtypes; then the pipelined
-   and the one-batch rates timed in turns (P B B P, twice);
+   and the one-batch rates timed in turns (P B B P);
 7. the warm catch-up path at full width (``warm_phase``, after the
    reference's ``run_delta_download_bench``): the pinned streams as
    tokened message lists, a cold fill of 80-op windows with the three
@@ -64,13 +64,29 @@ port's libraries from the sources in the checkout, and runs in order:
    (``csrc/tree_fold.cu``: state out, and with the fused digest) held
    against the plain fold and digest on a pinned chunk, padding rows
    included, and timed;
-9. times — each build of the fold kernel alone (CUDA events behind a
+9. SharedMap catch-up at full width (``map_phase``, BASELINE.json config
+   #2): ``replay_map_batch`` over 10,240 x ``gen_map_doc(i, 96)``, one
+   launch of the LWW kernel (``csrc/map_lww.cu``), every summary equal to
+   the oracle's, the stage split and the rate; the kernel held against
+   its plain version and the library chain on every key entry (the main
+   batch, the fixture, the crafted empty-segment cases) and timed;
+10. SharedMatrix catch-up at full width (``matrix_phase``, config #4):
+   ``replay_matrix_batch`` over 10,240 x ``gen_matrix_doc(i, 64)``, one
+   launch of the fold's resolving build in shared memory, every summary
+   equal to the oracle's, the stage split and the rate; the fixture's
+   routing counts equal to the JAX package's; the resolving build held
+   against the plain fold (every plane and resolved handle) on the main
+   batch, the fixture, the crafted resolve cases and 16 documents of
+   2,048 ops, which the entry folds in device memory; both builds timed;
+11. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
-   resident kernels and the two tree builds).
+   resident kernels, the two tree builds, the two resolving builds and
+   the map kernel).
 
 Each driven path (the one-batch entry, the state path, the large-S
-paths, the pipeline, each warm pass, each tree pass) runs with every
+paths, the pipeline, each warm pass, each tree pass, the map and matrix
+entries) runs with every
 launch count set to 0 just before it and read just after.  One JSON object per phase goes to stdout.  Any
 failure raises (non-zero exit, no result line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -99,7 +115,7 @@ LARGE_DOCS, LARGE_OPS, LARGE_S = 8, 2000, 4096
 #: the reference's pipeline defaults, and the timed turns (P = pipelined,
 #: B = one batch)
 CHUNK_DOCS = 1024
-TURNS = "PBBPPBBP"
+TURNS = "PBBP"
 DEVICE = "cuda"
 KERNEL_SOURCE = "fluidframework_tpu_torch/csrc/mergetree_fold.cu"
 TPU_KERNEL = "fluidframework_tpu/ops/pallas_fold.py:419"
@@ -125,6 +141,25 @@ TREE_REFERENCE = "BENCH_kernels_cpu_r14.json"
 #: the oracle sample of the tree phase: every shape (``tree_shape`` keys
 #: on idx % 32), then every 40th document
 TREE_ORACLE_HEAD, TREE_ORACLE_EVERY = 32, 40
+#: the map phase (BASELINE.json config #2, tools/bench_configs.py
+#: ``gen_map_doc``) and the matrix phase (config #4, ``gen_matrix_doc``),
+#: at full width; the matrix's device-memory batch (S = 4,096, past a
+#: block's shared memory)
+MAP_DOCS, MAP_OPS = 10240, 96
+MATRIX_DOCS, MATRIX_OPS = 10240, 64
+MATRIX_GMEM_DOCS, MATRIX_GMEM_OPS = 16, 2048
+MAP_SOURCE = "fluidframework_tpu_torch/csrc/map_lww.cu"
+MAP_REPLACES = "fluidframework_tpu/ops/map_kernel.py:140"
+MATRIX_REPLACES = ("fluidframework_tpu/ops/matrix_kernel.py:70 "
+                   "(+ _resolve_handle :58)")
+#: the entry points' rates are the median of this many calls (the driven
+#: call and the ones after it)
+ENTRY_CALLS = 3
+#: the JAX package's routing counts on the committed matrix fixture
+#: (tests/test_torch_matrix_kernel.py holds the port's equal to them on
+#: the CPU): one pre-pack fallback (two overlap removers in a base), one
+#: post-fold overflow (a third remover)
+MATRIX_FIXTURE_STATS = {"device_docs": 14, "fallback_docs": 2}
 #: Integer operations the tree fold needs, charged per unit of its work
 #: on these inputs (``tree_fold_work``): a state word in and out (a load
 #: and a store each way); an edit row (decode, expiry tests, a splice's
@@ -154,7 +189,14 @@ ANNOTATE_OPS_PER_SLOT_PER_KEY = 2
 #: device clock cycles spun before each timed launch (~1 ms at 1.98 GHz)
 SPIN_CYCLES = 2_000_000
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries the seconds since the
+    script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -188,7 +230,9 @@ def build_all():
             threading.Thread(target=run, args=(
                 "resident", lambda: _cuda_build.build("resident"))),
             threading.Thread(target=run, args=(
-                "tree_fold", lambda: _cuda_build.build("tree_fold")))]
+                "tree_fold", lambda: _cuda_build.build("tree_fold"))),
+            threading.Thread(target=run, args=(
+                "map_lww", lambda: _cuda_build.build("map_lww")))]
     for j in jobs:
         j.start()
     for j in jobs:
@@ -359,15 +403,31 @@ def expected_transfer(packed):
     return h2d, d2h
 
 
+_FOLD_WORK = {}
+
+
 def fold_work(state, ops):
+    """``fold_work_of`` once per pair of input tensors (a state-out and a
+    fold+export bound of the same batch share the walk).  The cache holds
+    the tensors it keys on, so no other tensor can take their address."""
+    key = tuple((x.data_ptr(), tuple(x.shape))
+                for x in (state.tstart, ops.kind))
+    if key not in _FOLD_WORK:
+        _FOLD_WORK[key] = (fold_work_of(state, ops), state.tstart, ops.kind)
+    return _FOLD_WORK[key][0]
+
+
+def fold_work_of(state, ops):
     """Integer operations the fold needs on these inputs, found by walking
     the op tail with the plain fold's own steps: for each real op row, one
     view and scan over the slots live at that row, the shift of the slots
     after each split or insert index only, the insert's own slot and
-    decision, and the range tail over the slots the op stamps."""
+    decision, and the range tail over the slots the op stamps; for each
+    matrix resolve row (kind 5), one view and scan over the live slots."""
     import torch
 
     from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+    from fluidframework_tpu_torch.ops.matrix_kernel import K_RESOLVE
 
     st = mt._stack_state(state)
     D, P, S = st.shape
@@ -415,6 +475,9 @@ def fold_work(state, ops):
                + is_ins.long() * INSERT_ROW_OPS
                + stamped.sum(1, keepdim=True) * tail[kind.long().clamp(0, 4)])
         total += torch.where(real, row, 0).sum()
+        total += torch.where(kind == K_RESOLVE,
+                             n.clamp(max=S).long() * VIEW_SCAN_OPS_PER_SLOT,
+                             0).sum()
         live_slots += torch.where(real, m, 0).sum()
         st, n, overflow = mt._apply_op(st, n, overflow, slot, op)
     return int(total), int(live_slots)
@@ -447,23 +510,27 @@ def state_out_bytes(D, S, T, K):
 
 
 def reset_counts():
-    from fluidframework_tpu_torch.ops import (fold_cuda, resident_cuda,
-                                              tree_fold_cuda)
+    from fluidframework_tpu_torch.ops import (fold_cuda, map_lww_cuda,
+                                              resident_cuda, tree_fold_cuda)
 
     fold_cuda.reset_launches()
     resident_cuda.reset_launches()
     tree_fold_cuda.reset_launches()
+    map_lww_cuda.reset_launches()
 
 
 def read_counts():
-    """Launches of each build of the fold kernel, of each resident kernel
-    and of each build of the tree kernel since ``reset_counts``."""
-    from fluidframework_tpu_torch.ops import (fold_cuda, resident_cuda,
-                                              tree_fold_cuda)
+    """Launches of each build of the fold kernel, of each resident kernel,
+    of each build of the tree kernel and of the map kernel since
+    ``reset_counts``."""
+    from fluidframework_tpu_torch.ops import (fold_cuda, map_lww_cuda,
+                                              resident_cuda, tree_fold_cuda)
 
     counts = {f"{entry.__name__}_{where}": n
-              for entry in (fold_cuda.fold, fold_cuda.fold_export)
+              for entry in (fold_cuda.fold, fold_cuda.fold_export,
+                            fold_cuda.fold_resolving)
               for where, n in entry.placements.items()}
+    counts["map_lww"] = map_lww_cuda.lww.launches
     counts["splice_rows"] = resident_cuda.splice_rows.launches
     counts["widen_resident"] = resident_cuda.widen_resident.launches
     counts.update({f"tree_{entry.__name__}_{where}": n
@@ -1069,6 +1136,333 @@ def tree_phase(dev, drive, launches):
         "path": "tree_grown", **splice}
 
 
+def entry_walls(fn, calls):
+    """Host seconds of ``calls`` calls of an entry point, each timed on
+    the host clock and ending in ``torch.cuda.synchronize()``."""
+    import torch
+
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def lww_library_chain(x, num_docs):
+    """The LWW reduction as a chain of library calls: four
+    ``scatter_reduce_`` (``"amax"``, from INT32_MIN) and two gathers,
+    without the plain version's segment-id guards (the packer's ids are in
+    range).  K7's ``library_ms`` yardstick; the port never calls it."""
+    import torch
+
+    def seg(values, ids, n):
+        return torch.full((n,), -2 ** 31, dtype=torch.int32,
+                          device=values.device).scatter_reduce_(
+            0, ids, values, "amax")
+
+    G = x.key_doc.shape[0]
+    gid = x.key_gid.long()
+    max_seq = seg(x.op_seq, gid, G)
+    last_clear = seg(x.clear_seq, x.clear_doc.long(), num_docs)
+    winner = x.op_seq == max_seq[gid]
+    win_set = seg(torch.where(winner, x.is_set, -1), gid, G)
+    win_val = seg(torch.where(winner, x.val_idx, -1), gid, G)
+    return (win_set == 1) & (max_seq > last_clear[x.key_doc.long()]), win_val
+
+
+def map_phase(dev, drive, launches, card):
+    """Phase 9: SharedMap catch-up at full width (BASELINE.json config #2,
+    the reference's ``gen_map_doc`` workload): ``replay_map_batch`` over
+    10,240 documents x 96 ops on the card, with one launch of the LWW
+    kernel (K7), ``stats`` counting every document on the device and every
+    summary byte-identical to the port's ``SharedMap`` oracle; the same
+    batch staged by hand (pack, upload, kernel, download, summaries) and
+    the entry's rate (median of 3 calls); K7 against its plain version and
+    the library chain on the card, bit-equal on every key entry (padding
+    included), on the main batch, the committed fixture and the crafted
+    empty-segment cases; K7 timed.  Returns K7's row of the ``kernels``
+    line."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import map_lww_cuda
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    t = time.perf_counter()
+    docs = [cw.gen_map_doc(i, MAP_OPS) for i in range(MAP_DOCS)]
+    gen_s = time.perf_counter() - t
+    n_ops = sum(len(d.ops) for d in docs)
+    stats = {}
+    got, e2e_s = drive("map", lambda: mp.replay_map_batch(
+        docs, stats=stats, device=dev))
+    t = time.perf_counter()
+    bad = [d.doc_id for d, g in zip(docs, got)
+           if g.digest() != mp.oracle_map_summary(d).digest()]
+    oracle_s = time.perf_counter() - t
+    walls = [e2e_s] + entry_walls(
+        lambda: mp.replay_map_batch(docs, device=dev), ENTRY_CALLS - 1)
+
+    stages = {}
+    t = time.perf_counter()
+    batch = mp.pack_map_batch(docs)
+    stages["pack"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    inputs = mp.lww_inputs(batch, dev)
+    torch.cuda.synchronize()
+    stages["upload"] = time.perf_counter() - t
+    t = time.perf_counter()
+    present, win_val = map_lww_cuda.lww(inputs, batch.num_docs)
+    torch.cuda.synchronize()
+    stages["kernel"] = time.perf_counter() - t
+    t = time.perf_counter()
+    present_h, win_val_h = present.cpu(), win_val.cpu()
+    stages["download"] = time.perf_counter() - t
+    t = time.perf_counter()
+    staged = mp.summaries_from_lww(batch, present_h, win_val_h)
+    stages["summaries"] = time.perf_counter() - t
+    staged_same = [x.digest() for x in staged] == [x.digest() for x in got]
+
+    parity = {}
+    for label, b in [("main", batch),
+                     ("fixture", mp.pack_map_batch(cw.hard_map_docs()))] + [
+            (f"crafted-{c}", mp.pack_map_batch(cw.crafted_map_docs(c)))
+            for c in cw.CRAFTED_MAP]:
+        x = mp.lww_inputs(b, dev)
+        kernel = map_lww_cuda.lww(x, b.num_docs)
+        plain = mp.map_lww_reference(x, b.num_docs)
+        library = lww_library_chain(x, b.num_docs)
+        torch.cuda.synchronize()
+        parity[label] = max(leaves_diff(plain, kernel),
+                            leaves_diff(library, kernel))
+    err = max(parity.values())
+
+    fn = lambda: map_lww_cuda.lww(inputs, batch.num_docs)  # noqa: E731
+    ms, runs = time_call(fn)
+    call_ms, _ = time_call(fn, spin=False)
+    _o, plain_ms = timed_once(
+        lambda: mp.map_lww_reference(inputs, batch.num_docs))
+    library_ms, library_runs = time_call(
+        lambda: lww_library_chain(inputs, batch.num_docs))
+    N, G, M = (inputs.key_gid.shape[0], inputs.key_doc.shape[0],
+               inputs.clear_doc.shape[0])
+    bound = bytes_bound(nbytes(tuple(inputs)) + G * (1 + 4), N + G + M)
+    k7 = launches["map"]["map_lww"]
+    emit({"phase": "map", "docs": MAP_DOCS, "ops": n_ops,
+          "shape": {"N": N, "G": G, "M": M, "keys": len(batch.keys)},
+          "launches": launches["map"], "stats": stats,
+          "oracle_docs": len(docs), "oracle_mismatches": bad[:8],
+          "gen_s": gen_s, "oracle_s": oracle_s, "e2e_s": e2e_s,
+          "walls_s": walls, "ops_per_s": n_ops / statistics.median(walls),
+          "stages_s": stages, "staged_equals_entry": staged_same,
+          "max_abs_err_by_batch": parity, "kernel_ms": ms,
+          "kernel_runs_ms": runs, "call_ms": call_ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "library_runs_ms": library_runs,
+          "bound": bound})
+    if k7 != 1:
+        raise AssertionError(f"replay_map_batch launched the map kernel "
+                             f"{k7} times, not once: {launches['map']}")
+    if stats != {"device_docs": MAP_DOCS}:
+        raise AssertionError(f"map stats {stats}")
+    if bad:
+        raise AssertionError(f"map summaries differ from the oracle: {bad[:8]}")
+    if not staged_same:
+        raise AssertionError("the staged map batch differs from the entry")
+    if err:
+        raise AssertionError(f"map kernel != plain / library chain: {parity}")
+    return {"name": "map_lww", "route": "cuda", "source": MAP_SOURCE,
+            "replaces": MAP_REPLACES, "launches": k7, "path": "map",
+            "timed_shape": [N, G, M], "max_abs_err": err, "tolerance": 0,
+            "parity": err == 0, "max_abs_err_by_batch": parity, "ms": ms,
+            "runs_ms": runs, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bound": bound, "library_ms": library_ms,
+            "library": "torch scatter_reduce_ amax chain (4 calls and 2 "
+                       "gathers)", "card": card}
+
+
+def matrix_phase(dev, drive, launches, card):
+    """Phase 10: SharedMatrix catch-up at full width (BASELINE.json config
+    #4, the reference's ``gen_matrix_doc`` workload):
+    ``replay_matrix_batch`` over 10,240 documents x 64 ops (20,480 axis
+    streams) on the card, with one launch of the resolving build (K4) in
+    shared memory and every summary byte-identical to the port's
+    ``SharedMatrix`` oracle; the same batch staged by hand and the entry's
+    rate (median of 3 calls); the committed fixture through the entry
+    (summaries against the oracle, routing counts equal to the JAX
+    package's); the resolving build against the plain
+    ``replay_scan_resolving`` on the card (every plane, ``n``,
+    ``overflow`` and every resolved handle) on the main batch, the fixture
+    and the crafted resolve cases, and on 16 documents of 2,048 ops
+    (S = 4,096), which take the device-memory build through the entry; both
+    builds timed.  Returns their rows of the ``kernels`` line."""
+    import torch
+
+    from fluidframework_tpu_torch.convert import tensors_to
+    from fluidframework_tpu_torch.ops import fold_cuda
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    t = time.perf_counter()
+    docs = [cw.gen_matrix_doc(i, MATRIX_OPS) for i in range(MATRIX_DOCS)]
+    gen_s = time.perf_counter() - t
+    n_ops = sum(len(d.ops) for d in docs)
+    stats = {}
+    got, e2e_s = drive("matrix", lambda: mk.replay_matrix_batch(
+        docs, stats=stats, device=dev))
+    t = time.perf_counter()
+    bad = [d.doc_id for d, g in zip(docs, got)
+           if g.digest() != mk.oracle_matrix_fallback(d).digest()]
+    oracle_s = time.perf_counter() - t
+    walls = [e2e_s] + entry_walls(
+        lambda: mk.replay_matrix_batch(docs, device=dev), ENTRY_CALLS - 1)
+
+    stages = {}
+    t = time.perf_counter()
+    st_np, ops_np, meta = mk.pack_matrix_batch(docs)
+    stages["pack"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, ops = tensors_to(st_np, dev), tensors_to(ops_np, dev)
+    torch.cuda.synchronize()
+    stages["upload"] = time.perf_counter() - t
+    t = time.perf_counter()
+    final, resolved = fold_cuda.fold_resolving(state, ops)
+    torch.cuda.synchronize()
+    stages["kernel"] = time.perf_counter() - t
+    t = time.perf_counter()
+    state_h = {k: v.cpu().numpy() for k, v in final._asdict().items()}
+    resolved_h = resolved.cpu().numpy()
+    stages["download"] = time.perf_counter() - t
+    t = time.perf_counter()
+    staged = [mk.summary_from_matrix_state(meta, state_h, resolved_h, d)
+              for d in range(len(docs))]
+    stages["summaries"] = time.perf_counter() - t
+    staged_same = [x.digest() for x in staged] == [x.digest() for x in got]
+    D2, S = st_np.tstart.shape
+    T = ops_np.kind.shape[1]
+
+    parity = {"smem": {}, "gmem": {}}
+
+    def check(label, st, op):
+        where = fold_cuda.placement(st.tstart.shape[1], 1)
+        got_f, got_r = fold_cuda.fold_resolving(st, op)
+        (want_f, want_r), plain = timed_once(
+            lambda: mk.replay_scan_resolving(st, op))
+        err_f, first = state_diff(want_f, got_f)
+        err = max(err_f, leaves_diff(want_r, got_r))
+        if err:
+            print(f"resolving fold vs plain ({label}): first state mismatch "
+                  f"{first}", file=sys.stderr)
+        parity[where][label] = err
+        return plain
+
+    plain_ms = check("main", state, ops)
+    fixture = cw.hard_matrix_docs()
+    fx_np = mk.pack_matrix_batch([d for d in fixture
+                                  if not mk.known_matrix_fallback(d)])
+    check("fixture", tensors_to(fx_np[0], dev), tensors_to(fx_np[1], dev))
+    cr_np = mk.pack_matrix_batch([cw.crafted_matrix_doc(c)
+                                  for c in cw.CRAFTED_MATRIX])
+    check("crafted", tensors_to(cr_np[0], dev), tensors_to(cr_np[1], dev))
+    fx_stats = {}
+    fx_got = mk.replay_matrix_batch(fixture, stats=fx_stats, device=dev)
+    fx_bad = [d.doc_id for d, g in zip(fixture, fx_got)
+              if g.digest() != mk.oracle_matrix_fallback(d).digest()]
+
+    t = time.perf_counter()
+    g_docs = [cw.gen_matrix_doc(i, MATRIX_GMEM_OPS)
+              for i in range(MATRIX_GMEM_DOCS)]
+    g_np, g_ops_np, _g_meta = mk.pack_matrix_batch(g_docs)
+    g_pack_s = time.perf_counter() - t
+    gD2, gS = g_np.tstart.shape
+    gT = g_ops_np.kind.shape[1]
+    g_where = fold_cuda.placement(gS, 1)
+    g_stats = {}
+    g_got, g_e2e_s = drive("matrix_gmem", lambda: mk.replay_matrix_batch(
+        g_docs, stats=g_stats, device=dev))
+    g_state, g_ops = tensors_to(g_np, dev), tensors_to(g_ops_np, dev)
+    g_plain_ms = check("large_s", g_state, g_ops)
+    t = time.perf_counter()
+    g_bad = [d.doc_id for d, g in zip(g_docs[:2], g_got)
+             if g.digest() != mk.oracle_matrix_fallback(d).digest()]
+    g_oracle_s = time.perf_counter() - t
+
+    times = {}
+    for where, st, op, shape, plain in (
+            ("smem", state, ops, (D2, S, T), plain_ms),
+            ("gmem", g_state, g_ops, (gD2, gS, gT), g_plain_ms)):
+        fn = lambda st=st, op=op: fold_cuda.fold_resolving(st, op)  # noqa
+        k_ms, k_runs = time_call(fn)
+        k_call_ms, _ = time_call(fn, spin=False)
+        d2, s_, t_ = shape
+        bound = bound_ms(st, op, state_out_bytes(d2, s_, t_, 1) + d2 * t_ * 4)
+        times[where] = {"shape": [d2, s_, t_, 1], "ms": k_ms,
+                        "runs_ms": k_runs, "call_ms": k_call_ms,
+                        "plain_ms": plain, "bound": bound,
+                        "resolve_rows": int((op.kind == mk.K_RESOLVE).sum())}
+    k4 = {"smem": launches["matrix"]["fold_resolving_smem"],
+          "gmem": launches["matrix_gmem"]["fold_resolving_gmem"]}
+    emit({"phase": "matrix", "docs": MATRIX_DOCS, "ops": n_ops,
+          "shape": [D2, S, T, 1], "launches": launches["matrix"],
+          "stats": stats, "oracle_docs": len(docs),
+          "oracle_mismatches": bad[:8], "gen_s": gen_s, "oracle_s": oracle_s,
+          "e2e_s": e2e_s, "walls_s": walls,
+          "ops_per_s": n_ops / statistics.median(walls), "stages_s": stages,
+          "staged_equals_entry": staged_same,
+          "fixture": {"docs": len(fixture), "stats": fx_stats,
+                      "reference_stats": MATRIX_FIXTURE_STATS,
+                      "oracle_mismatches": fx_bad},
+          "large_s": {"docs": MATRIX_GMEM_DOCS, "ops": MATRIX_GMEM_OPS,
+                      "shape": [gD2, gS, gT, 1], "placement": g_where,
+                      "pack_s": g_pack_s, "e2e_s": g_e2e_s,
+                      "stats": g_stats, "launches": launches["matrix_gmem"],
+                      "oracle_docs": 2, "oracle_mismatches": g_bad,
+                      "oracle_s": g_oracle_s},
+          "max_abs_err_by_batch": parity, "times": times})
+    if k4["smem"] != 1 or sum(launches["matrix"].values()) != 1:
+        raise AssertionError(f"replay_matrix_batch did not launch the "
+                             f"resolving build once in shared memory: "
+                             f"{launches['matrix']}")
+    if g_where != "gmem" or k4["gmem"] != 1:
+        raise AssertionError(f"the S={gS} matrix batch did not fold once in "
+                             f"device memory ({g_where}): "
+                             f"{launches['matrix_gmem']}")
+    if stats != {"device_docs": MATRIX_DOCS}:
+        raise AssertionError(f"matrix stats {stats}")
+    if bad or fx_bad or g_bad:
+        raise AssertionError(f"matrix summaries differ from the oracle: "
+                             f"{(bad + fx_bad + g_bad)[:8]}")
+    if not staged_same:
+        raise AssertionError("the staged matrix batch differs from the entry")
+    if fx_stats != MATRIX_FIXTURE_STATS:
+        raise AssertionError(f"fixture routing {fx_stats}, the JAX "
+                             f"package's {MATRIX_FIXTURE_STATS}")
+    err = max(v for by in parity.values() for v in by.values())
+    if err:
+        raise AssertionError(f"resolving fold != plain: {parity}")
+    rows = []
+    for where, path in (("smem", "matrix"), ("gmem", "matrix_gmem")):
+        rec, e = times[where], max(parity[where].values())
+        rows.append({
+            "name": f"matrix_fold_resolve_{where}", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": MATRIX_REPLACES,
+            "placement": where, "launches": k4[where], "path": path,
+            "timed_shape": rec["shape"], "max_abs_err": e, "tolerance": 0,
+            "parity": e == 0, "max_abs_err_by_batch": parity[where],
+            "ms": rec["ms"], "runs_ms": rec["runs_ms"],
+            "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound"]["bound_ms"],
+            "bound_by": rec["bound"]["bound_by"], "bound": rec["bound"],
+            "resolve_rows": rec["resolve_rows"], "library_ms": None,
+            "library": "none: no one PyTorch call computes the axis fold "
+                       "with resolution", "card": card})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1114,9 +1508,9 @@ def main() -> int:
     built = build_all()
     occ = [fold_cuda.occupancy(S, 1, kernel=k)
            for S in (PINNED_S, TAIL_S, LARGE_S)
-           for k in ("fold", "fold_export")]
+           for k in ("fold", "fold_export", "fold_resolving")]
     ptxas = {}
-    for source in ("mergetree_fold", "resident", "tree_fold"):
+    for source in ("mergetree_fold", "resident", "tree_fold", "map_lww"):
         with open(_cuda_build.library_path(source) + ".log") as f:
             ptxas[source] = [ln.strip() for ln in f if "registers" in ln
                              or "spill" in ln or "smem" in ln]
@@ -1397,7 +1791,13 @@ def main() -> int:
     k5_rows, tree_splice = tree_phase(dev, drive, launches)
     k6_rows[0]["tree_grown"] = tree_splice
 
-    # -- 9. times ----------------------------------------------------------
+    # -- 9. SharedMap catch-up at full width -------------------------------
+    k7_row = map_phase(dev, drive, launches, card)
+
+    # -- 10. SharedMatrix catch-up at full width ---------------------------
+    k4_rows = matrix_phase(dev, drive, launches, card)
+
+    # -- 11. times ---------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -1473,7 +1873,8 @@ def main() -> int:
                 "call_ms": t_call_ms, "plain_ms": t_plain_ms,
                 "bound_ms": t_bound["bound_ms"],
                 "bound_by": t_bound["bound_by"], "library_ms": None,
-                "card": card}
+                "library": "none: no one PyTorch call computes the "
+                           "merge-tree fold", "card": card}
 
     emit({"kernels": [
         entry("fold_smem", "smem", "state", [D, S, T, K],
@@ -1485,7 +1886,8 @@ def main() -> int:
         entry("fold_export_gmem", "gmem", "large_pipeline",
               [wave, lg_S, lg_T, 1], parity["fold_export_gmem"], lg_fx[0],
               lg_fx[2], lg_fx[3], lg_fx[4]),
-    ] + [dict(r, card=card) for r in k6_rows + k5_rows]})
+    ] + [dict(r, card=card) for r in k6_rows + k5_rows] + k4_rows
+        + [k7_row]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

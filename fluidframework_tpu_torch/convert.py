@@ -1,7 +1,8 @@
 """Carry packed arrays and document inputs across.
 
 Everything is read by attribute name, so any object with the ``MTState``
-/ ``MTOps`` (or ``TreeState`` / ``TreeEdits``) field names holding numpy
+/ ``MTOps`` (or ``TreeState`` / ``TreeEdits``, or a packed map batch's)
+field names holding numpy
 arrays converts — the port's own packers' output and the JAX package's
 (which is numpy as well) alike — and no import of the JAX package is
 needed.
@@ -12,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.map_kernel import LWWInputs, MapDocInput, lww_inputs
+from .ops.matrix_kernel import MatrixDocInput
 from .ops.mergetree_kernel import MergeTreeDocInput
 from .ops.tree_kernel import TreeDocInput, TreeEdits, TreeState
 from .protocol.messages import MessageType, SequencedMessage
@@ -97,3 +100,32 @@ def tree_arrays_from(state, edits):
                          for f in TreeState._fields}),
             TreeEdits(**{f: np.asarray(getattr(edits, f))
                          for f in TreeEdits._fields}))
+
+
+def map_doc_input_from(obj) -> MapDocInput:
+    """A port ``MapDocInput`` copied from any object with the same
+    attribute names (the JAX package's included)."""
+    return MapDocInput(doc_id=obj.doc_id,
+                       ops=[_message_from(m) for m in obj.ops],
+                       base=None if obj.base is None else dict(obj.base))
+
+
+def matrix_doc_input_from(obj) -> MatrixDocInput:
+    """A port ``MatrixDocInput`` copied from any object with the same
+    attribute names (the JAX package's included): messages rebuilt as the
+    port's, the base summary as the port's ``SummaryTree``."""
+    base = obj.base_summary
+    return MatrixDocInput(
+        doc_id=obj.doc_id,
+        ops=[_message_from(m) for m in obj.ops],
+        base_summary=None if base is None else summary_tree_from(base),
+        final_seq=obj.final_seq,
+        final_msn=obj.final_msn,
+    )
+
+
+def map_batch_from(packed, device="cpu") -> LWWInputs:
+    """The seven int32 arrays of a packed map batch (the JAX package's
+    ``pack_map_batch`` output included) as the port's ``LWWInputs`` of
+    tensors on ``device``."""
+    return lww_inputs(packed, device)

@@ -1,6 +1,7 @@
-"""The hand-written CUDA fold kernel (state-out builds in shared and in
-device memory, and the fold+export build) against the plain PyTorch
-versions, and the entry points against the oracle, on the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
+"""The hand-written CUDA kernels (the fold's state-out builds in shared
+and in device memory, its fold+export and resolving builds, the resident,
+tree and map kernels) against the plain PyTorch versions, and the entry
+points against the oracles, on the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
 a CUDA device they skip.  They import neither JAX nor the JAX package, so
 on a machine without JAX they run with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -502,3 +503,145 @@ def test_tree_warm_sequence_on_card_matches_cpu(cuda, monkeypatch):
         tk.oracle_fallback_summary(d).digest() for d in grown]
     got = tk.replay_tree_batch(grown)
     assert [s.digest() for s in got] == runs["cuda"][0][-1][0]
+
+
+# ---------------------------------------------------------------------------
+# The SharedMap reduction (csrc/map_lww.cu) and the matrix axis fold with
+# resolution (the resolving build of csrc/mergetree_fold.cu)
+# ---------------------------------------------------------------------------
+
+
+def _map_corpora():
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    out = {f"crafted-{c}": (lambda c=c: cw.crafted_map_docs(c))
+           for c in cw.CRAFTED_MAP}
+    out["fixture"] = cw.hard_map_docs
+    out["workload-256x96"] = lambda: [cw.gen_map_doc(i, 96)
+                                      for i in range(256)]
+    return out
+
+
+def _matrix_corpora():
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    out = {f"crafted-{c}": (lambda c=c: [cw.crafted_matrix_doc(c)])
+           for c in cw.CRAFTED_MATRIX}
+    out["fixture"] = cw.hard_matrix_docs
+    out["workload-64x64"] = lambda: [cw.gen_matrix_doc(i, 64)
+                                     for i in range(64)]
+    return out
+
+
+@pytest.mark.parametrize("corpus", sorted(_map_corpora()))
+def test_map_lww_kernel_matches_plain_on_every_key(cuda, corpus):
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import map_lww_cuda
+
+    batch = mp.pack_map_batch(_map_corpora()[corpus]())
+    inputs = mp.lww_inputs(batch, cuda)
+    before = map_lww_cuda.lww.launches
+    got_present, got_val = map_lww_cuda.lww(inputs, batch.num_docs)
+    torch.cuda.synchronize()
+    assert map_lww_cuda.lww.launches == before + 1
+    want_present, want_val = mp.map_lww_reference(inputs, batch.num_docs)
+    assert got_present.dtype == torch.bool and got_val.dtype == torch.int32
+    assert torch.equal(want_present, got_present)
+    assert torch.equal(want_val, got_val)
+
+
+def test_map_lww_kernel_counts_no_launch_for_no_keys(cuda):
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import map_lww_cuda
+
+    empty = mp.LWWInputs(*[torch.zeros(n, dtype=torch.int32, device=cuda)
+                           for n in (64, 64, 64, 64, 0, 64, 64)])
+    before = map_lww_cuda.lww.launches
+    present, win_val = map_lww_cuda.lww(empty, 1)
+    assert present.shape == win_val.shape == (0,)
+    assert mp.replay_map_batch([]) == []
+    assert map_lww_cuda.lww.launches == before
+
+
+def test_map_entry_point_on_card_matches_oracle(cuda):
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import map_lww_cuda
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    docs = cw.hard_map_docs() + cw.crafted_map_docs("mixed") + \
+        [cw.gen_map_doc(i, 96) for i in range(64)]
+    before = map_lww_cuda.lww.launches
+    stats = {}
+    got = mp.replay_map_batch(docs, stats=stats)
+    assert map_lww_cuda.lww.launches == before + 1
+    assert stats == {"device_docs": len(docs)}
+    assert [s.digest() for s in got] == \
+        [mp.oracle_map_summary(d).digest() for d in docs]
+
+
+@pytest.mark.parametrize("where", ["smem", "gmem"])
+@pytest.mark.parametrize("corpus", sorted(_matrix_corpora()))
+def test_resolving_kernel_matches_plain(cuda, monkeypatch, corpus, where):
+    """Both placements of the resolving build against the plain
+    ``replay_scan_resolving``: every plane, ``n``, ``overflow`` and every
+    resolved handle (padding rows included); device memory forced by
+    patching ``placement``."""
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+
+    docs = [d for d in _matrix_corpora()[corpus]()
+            if not mk.known_matrix_fallback(d)]
+    st_np, ops_np, _meta = mk.pack_matrix_batch(docs)
+    state, ops = tensors_to(st_np, cuda), tensors_to(ops_np, cuda)
+    monkeypatch.setattr(fold_cuda, "placement", lambda S, K, lib=None: where)
+    before = dict(fold_cuda.fold_resolving.placements)
+    got, got_resolved = fold_cuda.fold_resolving(state, ops)
+    torch.cuda.synchronize()
+    assert fold_cuda.fold_resolving.placements == dict(
+        before, **{where: before[where] + 1})
+    want, want_resolved = mk.replay_scan_resolving(state, ops)
+    _assert_all_equal(want, got)
+    assert torch.equal(want_resolved, got_resolved)
+
+
+def test_resolving_kernel_skips_a_zero_width_slot_that_ends_a_chunk(cuda):
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    st_np, ops_np, _m = mk.pack_matrix_batch(
+        [cw.crafted_matrix_doc("zero-width-chunk-end")])
+    _final, resolved = fold_cuda.fold_resolving(tensors_to(st_np, cuda),
+                                                tensors_to(ops_np, cuda))
+    rows = resolved[0][torch.from_numpy(ops_np.kind[0]).to(cuda)
+                       == mk.K_RESOLVE]
+    assert rows.tolist() == [32, 31, -1]
+
+
+def test_resolving_kernel_counts_no_launch_for_an_empty_batch(cuda):
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    st_np, ops_np, _m = mk.pack_matrix_batch([cw.gen_matrix_doc(0, 8)])
+    state = mt.MTState(*(x[:0] for x in tensors_to(st_np, cuda)))
+    ops = mt.MTOps(*(x[:0] for x in tensors_to(ops_np, cuda)))
+    before = (fold_cuda.fold_resolving.launches,
+              dict(fold_cuda.fold_resolving.placements))
+    final, resolved = fold_cuda.fold_resolving(state, ops)
+    assert final.tstart.shape[0] == 0 and resolved.shape[0] == 0
+    assert (fold_cuda.fold_resolving.launches,
+            fold_cuda.fold_resolving.placements) == before
+
+
+def test_matrix_entry_point_on_card_matches_oracle(cuda):
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    docs = cw.hard_matrix_docs() + [cw.crafted_matrix_doc(c)
+                                    for c in cw.CRAFTED_MATRIX] + \
+        [cw.gen_matrix_doc(i, 64) for i in range(64)]
+    before = fold_cuda.fold_resolving.launches
+    stats = {}
+    got = mk.replay_matrix_batch(docs, stats=stats)
+    assert fold_cuda.fold_resolving.launches == before + 1
+    assert stats == {"device_docs": len(docs) - 2, "fallback_docs": 2}
+    assert [s.digest() for s in got] == \
+        [mk.oracle_matrix_fallback(d).digest() for d in docs]

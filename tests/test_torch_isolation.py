@@ -150,3 +150,32 @@ def test_tree_entry_points_without_device_raise_when_no_cuda(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(base[3:])
+
+
+def test_map_and_matrix_port_replay_with_jax_and_the_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'fluidframework_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fluidframework_tpu_torch.ops import map_kernel as mp\n"
+        "from fluidframework_tpu_torch.ops import matrix_kernel as mk\n"
+        "from fluidframework_tpu_torch.testing import config_workloads as cw\n"
+        "docs = cw.hard_map_docs() + [cw.gen_map_doc(i, 24) for i in range(4)]\n"
+        "got = mp.replay_map_batch(docs, device='cpu')\n"
+        "assert [s.digest() for s in got] == \\\n"
+        "    [mp.oracle_map_summary(d).digest() for d in docs]\n"
+        "docs = cw.hard_matrix_docs()[-3:] + \\\n"
+        "    [cw.gen_matrix_doc(i, 24) for i in range(4)]\n"
+        "got = mk.replay_matrix_batch(docs, device='cpu')\n"
+        "assert [s.digest() for s in got] == \\\n"
+        "    [mk.oracle_matrix_fallback(d).digest() for d in docs]\n"
+        "assert not any(m.startswith(('jax', 'fluidframework_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
