@@ -82,7 +82,11 @@ port's libraries from the sources in the checkout, and runs in order:
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
    resident kernels, the two tree builds, the two resolving builds and
-   the map kernel).
+   the map kernel; the tree and map rows also carry ``earlier_ms``, the
+   time of the kernel's earlier design (``csrc/*_earlier.cu``, built
+   with the kernels) on the same inputs in this run, held bit-equal to
+   the kernel, and their ``launch_shape``, the tree rows the walk steps
+   and the longest document's edit rows plus walk steps).
 
 Each driven path (the one-batch entry, the state path, the large-S
 paths, the pipeline, each warm pass, each tree pass, the map and matrix
@@ -152,6 +156,10 @@ MAP_SOURCE = "fluidframework_tpu_torch/csrc/map_lww.cu"
 MAP_REPLACES = "fluidframework_tpu/ops/map_kernel.py:140"
 MATRIX_REPLACES = ("fluidframework_tpu/ops/matrix_kernel.py:70 "
                    "(+ _resolve_handle :58)")
+#: the earlier designs of the redesigned kernels, built and timed beside
+#: them in every run (``earlier_ms``)
+TREE_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/tree_fold_earlier.cu"
+MAP_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/map_lww_earlier.cu"
 #: the entry points' rates are the median of this many calls (the driven
 #: call and the ones after it)
 ENTRY_CALLS = 3
@@ -232,7 +240,13 @@ def build_all():
             threading.Thread(target=run, args=(
                 "tree_fold", lambda: _cuda_build.build("tree_fold"))),
             threading.Thread(target=run, args=(
-                "map_lww", lambda: _cuda_build.build("map_lww")))]
+                "map_lww", lambda: _cuda_build.build("map_lww"))),
+            threading.Thread(target=run, args=(
+                "tree_fold_earlier", lambda: _cuda_build.build(
+                    "tree_fold_earlier"))),
+            threading.Thread(target=run, args=(
+                "map_lww_earlier", lambda: _cuda_build.build(
+                    "map_lww_earlier")))]
     for j in jobs:
         j.start()
     for j in jobs:
@@ -1062,18 +1076,34 @@ def tree_phase(dev, drive, launches):
     err_digest = max(tree_diff(want_final, got_final2),
                      leaves_diff(want_dig, got_dig))
     overflowed = int(want_final.overflow.sum())
+    # the slowest document's chain: its real edit rows and walk steps
+    longest = int((((ed.kind >= 1) & (ed.kind <= 4)).sum(1)
+                   + work["doc_walk_steps"]).max())
     D, N = host_st.next.shape
     C, T = host_st.head.shape[1], host_ed.kind.shape[1]
+    # the earlier design on the same chunk: the same result, bit for bit
+    earlier = tree_fold_cuda.earlier_library()
+    old_final = tree_fold_cuda.fold(st, ed, lib=earlier)
+    old_final2, old_dig = tree_fold_cuda.fold_digest(st, ed, *counts,
+                                                     lib=earlier)
+    torch.cuda.synchronize()
+    err_earlier = max(tree_diff(got_final, old_final),
+                      tree_diff(got_final2, old_final2),
+                      leaves_diff(got_dig, old_dig))
     rows = {}
-    for name, build, fn, plain in (
+    for name, build, fn, plain, before in (
             ("tree_fold", "tree_fold_smem",
              lambda: tree_fold_cuda.fold(st, ed),
-             lambda: tk.tree_fold_reference(st, ed)),
+             lambda: tk.tree_fold_reference(st, ed),
+             lambda: tree_fold_cuda.fold(st, ed, lib=earlier)),
             ("tree_fold_digest", "tree_fold_digest_smem",
              lambda: tree_fold_cuda.fold_digest(st, ed, *counts),
              lambda: tp.tree_doc_digests(tk.tree_fold_reference(st, ed),
-                                         *counts))):
+                                         *counts),
+             lambda: tree_fold_cuda.fold_digest(st, ed, *counts,
+                                                lib=earlier))):
         ms, runs = time_call(fn)
+        earlier_ms, earlier_runs = time_call(before)
         call_ms, _ = time_call(fn, spin=False)
         _out, plain_ms = timed_once(plain)
         moved, ops, real_rows = tree_fold_work(
@@ -1081,11 +1111,13 @@ def tree_phase(dev, drive, launches):
             counts if name == "tree_fold_digest" else None)
         bound = bytes_bound(moved, ops)
         path = "tree_cold" if name == "tree_fold_digest" else "tree_off_base"
+        where = tree_fold_cuda.placement(N, C)
         rows[name] = {
             "name": name, "route": "cuda", "source": TREE_SOURCE,
             "replaces": TREE_DIGEST_REPLACES if name == "tree_fold_digest"
             else TREE_REPLACES,
-            "placement": tree_fold_cuda.placement(N, C),
+            "placement": where,
+            "launch_shape": tree_fold_cuda.launch_shape(D, N, C),
             "launches": launches[path][build], "path": path,
             "timed_shape": [D, N, C, T],
             "max_abs_err": err_digest if name == "tree_fold_digest"
@@ -1093,7 +1125,11 @@ def tree_phase(dev, drive, launches):
             "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "bound": bound, "real_edit_rows": real_rows,
-            "walk_steps": work["walk_steps"], "library_ms": None,
+            "walk_steps": work["walk_steps"],
+            "longest_doc_rows_plus_walk": longest,
+            "earlier_ms": earlier_ms, "earlier_runs_ms": earlier_runs,
+            "earlier_source": TREE_EARLIER_SOURCE,
+            "earlier_max_abs_err": err_earlier, "library_ms": None,
             "library": "none: no one PyTorch call computes this fold"}
         rows[name]["parity"] = rows[name]["max_abs_err"] == 0
 
@@ -1131,6 +1167,9 @@ def tree_phase(dev, drive, launches):
     if err_fold or err_digest:
         raise AssertionError(f"tree kernel != plain: fold {err_fold}, "
                              f"digest build {err_digest}")
+    if err_earlier:
+        raise AssertionError(f"the tree kernel's earlier design differs "
+                             f"from it: {err_earlier}")
     return [rows["tree_fold"], rows["tree_fold_digest"]], {
         "launches": launches["tree_grown"]["splice_rows"],
         "path": "tree_grown", **splice}
@@ -1241,7 +1280,12 @@ def map_phase(dev, drive, launches, card):
     err = max(parity.values())
 
     fn = lambda: map_lww_cuda.lww(inputs, batch.num_docs)  # noqa: E731
+    earlier = map_lww_cuda.earlier_library()
+    before = lambda: map_lww_cuda.lww(  # noqa: E731
+        inputs, batch.num_docs, lib=earlier)
+    err_earlier = leaves_diff(fn(), before())
     ms, runs = time_call(fn)
+    earlier_ms, earlier_runs = time_call(before)
     call_ms, _ = time_call(fn, spin=False)
     _o, plain_ms = timed_once(
         lambda: mp.map_lww_reference(inputs, batch.num_docs))
@@ -1261,6 +1305,7 @@ def map_phase(dev, drive, launches, card):
           "max_abs_err_by_batch": parity, "kernel_ms": ms,
           "kernel_runs_ms": runs, "call_ms": call_ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "library_runs_ms": library_runs,
+          "earlier_ms": earlier_ms, "earlier_max_abs_err": err_earlier,
           "bound": bound})
     if k7 != 1:
         raise AssertionError(f"replay_map_batch launched the map kernel "
@@ -1273,6 +1318,9 @@ def map_phase(dev, drive, launches, card):
         raise AssertionError("the staged map batch differs from the entry")
     if err:
         raise AssertionError(f"map kernel != plain / library chain: {parity}")
+    if err_earlier:
+        raise AssertionError(f"the map kernel's earlier design differs "
+                             f"from it: {err_earlier}")
     return {"name": "map_lww", "route": "cuda", "source": MAP_SOURCE,
             "replaces": MAP_REPLACES, "launches": k7, "path": "map",
             "timed_shape": [N, G, M], "max_abs_err": err, "tolerance": 0,
@@ -1281,7 +1329,13 @@ def map_phase(dev, drive, launches, card):
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "bound": bound, "library_ms": library_ms,
             "library": "torch scatter_reduce_ amax chain (4 calls and 2 "
-                       "gathers)", "card": card}
+                       "gathers)", "earlier_ms": earlier_ms,
+            "earlier_runs_ms": earlier_runs,
+            "earlier_source": MAP_EARLIER_SOURCE,
+            "earlier_max_abs_err": err_earlier,
+            "launch_shape": map_lww_cuda.launch_shape(N, G, M,
+                                                      batch.num_docs),
+            "card": card}
 
 
 def matrix_phase(dev, drive, launches, card):

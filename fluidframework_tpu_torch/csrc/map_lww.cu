@@ -20,32 +20,63 @@
 // plain PyTorch version are ops/map_lww_cuda.py and
 // ops/map_kernel.map_lww_reference.
 //
-// Design.  Four launches on the caller's stream, behind one C entry:
-//   1. init:    the four reduction targets (max_seq, win_set, win_val
-//               [G] and last_clear [docs]) to INT32_MIN, which cudaMemset
-//               cannot write;
-//   2. seqs:    a grid-stride pass over the N op rows (atomicMax into
-//               max_seq) and the M clear rows (into last_clear);
-//   3. winners: a grid-stride pass over the op rows; a winner row
-//               (op_seq == max_seq[g], after pass 2 has finished) does
-//               atomicMax into win_set and win_val, every other row
-//               contributes -1, with an atomic only while the word still
-//               reads below -1;
-//   4. present: one thread a key.
-// Max is order-free, so the result is deterministic whatever order the
-// atomics land in.  The wrapper allocates the outputs and the scratch.
+// What bounds it on this card: bytes.  Each input is read once and each
+// output written once: at N = 1,048,576 op rows, G = 262,144 keys and
+// M = 32,768 clears (10,240 documents of the map workload) that is
+// 19.4 MB, 5.8 us at 3.35 TB/s, with a compare or two a row.  An earlier
+// design of this file reached 28x that bound: four dependent launches
+// (an init pass, because cudaMemset cannot write INT32_MIN; the seqs; the
+// winners, which read every row again to compare it with max_seq; the
+// present test), each doing one global atomic a row, and the rows of one
+// document's hot keys landing on the same words in one warp, where the
+// atomics serialise.
 //
-// What bounds it on this card: bytes.  Each input is read once (pass 3
-// re-reads key_gid and op_seq, and max_seq from L2) and each output is
-// written once: at N = 1,048,576 op rows, G = 262,144 keys and M = 32,768
-// clears (10,240 documents of the map workload) that is 19.4 MB, 5.8 us
-// at 3.35 TB/s; the work is a compare and an atomic a row.  Measured by
-// chip_smoke.py on an H100 (700 W) at that shape: 0.163 ms, 28x the
-// bound, against 0.426 ms for the same reduction as a chain of torch
-// scatter_reduce_ calls.  What holds it back is not measured (no profiler
-// counters); the likely cost is the atomics on the hot keys of each
-// document (rows of one key in one warp serialise on one word) and the
-// four dependent launches.
+// Design.  One pass over the rows, then one thread a key:
+//   - Every reduction target is a word whose all-zero state reads as the
+//     empty segment, so one cudaMemsetAsync to 0 replaces the init pass.
+//     An int32 v is carried as the uint32 v ^ 0x80000000 ("biased"), which
+//     orders as the int32 does and maps INT32_MIN to 0.
+//   - (seq, payload) is one 64-bit word, biased seq above biased payload,
+//     so its unsigned maximum is the largest seq and, among the rows with
+//     that seq (the winners), the largest payload: one word for is_set,
+//     one for val_idx.  The seqs pass and the winners pass become one.
+//   - A loser row (seq below the key's maximum) contributes -1 to both
+//     maxima.  The words alone cannot tell whether a key has a loser, and
+//     the answer differs where a winner's payload is below -1, which the
+//     plain version defines for any int32 input.  So the pass also keeps
+//     each key's least seq (as the maximum of its complement, so that 0
+//     again reads as empty), and the key pass applies max(., -1) where the
+//     least seq is below the largest.
+//   - Each warp reduces its 32 rows by key before touching device
+//     memory: __match_any_sync groups the lanes holding one key, every
+//     lane folds its group's other members into its own values by
+//     shuffles (a warp-uniform loop as long as the largest group), and
+//     the group's first lane issues three atomics for the whole group.  A
+//     key's rows spread over many warps still land on one word, in any
+//     order: the maxima and minimum are order-free, so the result is
+//     deterministic.
+//   - The clear rows ride in the same launch (one atomic a clear row; a
+//     padding clear, seq INT32_MIN, biases to 0 and changes nothing, so
+//     it is skipped).
+//   - The key pass decodes the words, gathers last_clear by XLA's rule
+//     and writes win_val and present.
+// The packer emits rows in document order with each document's keys
+// contiguous, so a warp's 32 rows hold some ten keys: about three atomics
+// for every eight rows.  The answer does not depend on that order.
+//
+// Measured with tools/torch_kernel_turns.py on an H100 (700 W) at the
+// shape above: 0.0257 ms (4.4x the bytes bound), against 0.161 ms for the
+// earlier design in the same process, bit for bit equal; the memset
+// 0.0062 ms (a 16-byte zeroing kernel in its place took the same: the
+// launch, not the 5.3 MB, sets it), the row pass ~0.016 ms (its atomics
+// ~0.002 ms: the rest is the group reductions and the reads), the key
+// pass ~0.004 ms.  Reducing one key at a time with __reduce_max_sync /
+// __reduce_min_sync took the row pass to ~0.026 ms: those reductions
+// give one warp-wide value, so a warp looped over its keys, four of them
+// a key.
+//
+// A launch runs on the stream it is given and does not synchronise; the
+// entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -56,71 +87,114 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kBias = 0x80000000u;
 
 struct LwwArgs {
-  const int32_t* key_gid;    // [N]
-  const int32_t* op_seq;     // [N]
-  const int32_t* is_set;     // [N]
-  const int32_t* val_idx;    // [N]
-  const int32_t* key_doc;    // [G]
-  const int32_t* clear_doc;  // [M]
-  const int32_t* clear_seq;  // [M]
-  int32_t* max_seq;          // [G] scratch
-  int32_t* win_set;          // [G] scratch
-  int32_t* last_clear;       // [docs] scratch
-  int32_t* win_val;          // [G] out
-  uint8_t* present;          // [G] out (torch.bool)
+  const int32_t* key_gid;           // [N]
+  const int32_t* op_seq;            // [N]
+  const int32_t* is_set;            // [N]
+  const int32_t* val_idx;           // [N]
+  const int32_t* key_doc;           // [G]
+  const int32_t* clear_doc;         // [M]
+  const int32_t* clear_seq;         // [M]
+  unsigned long long* set_word;     // [G] scratch: (seq, is_set) maximum
+  unsigned long long* val_word;     // [G] scratch: (seq, val_idx) maximum
+  uint32_t* low_word;               // [G] scratch: ~least biased seq
+  uint32_t* clear_word;             // [docs] scratch: largest biased clear
+  int32_t* win_val;                 // [G] out
+  uint8_t* present;                 // [G] out (torch.bool)
   int N, G, M, docs;
 };
 
-__global__ void init_kernel(LwwArgs a) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.G; i += stride) {
-    a.max_seq[i] = INT_MIN;
-    a.win_set[i] = INT_MIN;
-    a.win_val[i] = INT_MIN;
-  }
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.docs; i += stride)
-    a.last_clear[i] = INT_MIN;
+__device__ __forceinline__ uint32_t biased(int v) {
+  return (uint32_t)v ^ kBias;
 }
 
-__global__ void seq_kernel(LwwArgs a) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.N; i += stride) {
-    const int g = a.key_gid[i];
-    if (g >= 0 && g < a.G) atomicMax(&a.max_seq[g], a.op_seq[i]);
-  }
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.M; i += stride) {
-    const int d = a.clear_doc[i];
-    if (d >= 0 && d < a.docs) atomicMax(&a.last_clear[d], a.clear_seq[i]);
-  }
+__device__ __forceinline__ int unbiased(uint32_t u) {
+  return (int)(u ^ kBias);
 }
 
-__global__ void winner_kernel(LwwArgs a) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.N; i += stride) {
-    const int g = a.key_gid[i];
-    if (g < 0 || g >= a.G) continue;  // dropped by segment_max
-    if (a.op_seq[i] != a.max_seq[g]) {
-      // A loser contributes -1.  The max only grows, so once a word
-      // reads -1 or more the loser cannot change it and skips the atomic
-      // (a stale read only costs an atomic that changes nothing).
-      if (a.win_set[g] < -1) atomicMax(&a.win_set[g], -1);
-      if (a.win_val[g] < -1) atomicMax(&a.win_val[g], -1);
-      continue;
+// One pass over the op rows (a warp takes 32 at a time) and the clears.
+__global__ void __launch_bounds__(kThreads) rows_kernel(LwwArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long base = warp * 32; base < a.N; base += warps * 32) {
+    const long long i = base + lane;
+    int g = -1;
+    uint32_t seq = 0, st = 0, vl = 0;
+    bool valid = false;
+    if (i < a.N) {
+      g = a.key_gid[i];
+      valid = g >= 0 && g < a.G;  // segment_max drops the others
+      seq = biased(a.op_seq[i]);
+      st = biased(a.is_set[i]);
+      vl = biased(a.val_idx[i]);
     }
-    atomicMax(&a.win_set[g], a.is_set[i]);
-    atomicMax(&a.win_val[g], a.val_idx[i]);
+    // Each lane reduces its key's group: __match_any_sync gives the lanes
+    // that hold the same key, and every lane walks its group's other
+    // members, one a step, taking their values by shuffles; the warp runs
+    // as many steps as its largest group needs (a lane whose group is
+    // done reads itself again, which changes nothing).  A lane whose row
+    // is dropped forms a group of its own.
+    const unsigned group = __match_any_sync(kFull, valid ? g : -1 - lane);
+    unsigned rest = group & ~(1u << lane);
+    const int steps = __reduce_max_sync(kFull, (unsigned)__popc(rest));
+    uint32_t hi = seq, lo = seq, smax = st, vmax = vl;
+    for (int k = 0; k < steps; ++k) {
+      const int src = rest ? __ffs(rest) - 1 : lane;
+      rest &= rest - 1;
+      const uint32_t m_seq = __shfl_sync(kFull, seq, src);
+      const uint32_t m_st = __shfl_sync(kFull, st, src);
+      const uint32_t m_vl = __shfl_sync(kFull, vl, src);
+      if (m_seq > hi) {  // a later winner: its payloads replace the others
+        hi = m_seq;
+        smax = m_st;
+        vmax = m_vl;
+      } else if (m_seq == hi) {
+        smax = max(smax, m_st);
+        vmax = max(vmax, m_vl);
+      }
+      lo = min(lo, m_seq);
+    }
+    const bool lead = valid && lane == __ffs(group) - 1;
+    if (lead) {
+      const unsigned long long h = (unsigned long long)hi << 32;
+      atomicMax(&a.set_word[g], h | smax);
+      atomicMax(&a.val_word[g], h | vmax);
+      atomicMax(&a.low_word[g], ~lo);
+    }
+  }
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < a.M; i += stride) {
+    const int d = a.clear_doc[i];
+    const uint32_t s = biased(a.clear_seq[i]);
+    if (d >= 0 && d < a.docs && s != 0u) atomicMax(&a.clear_word[d], s);
   }
 }
 
-__global__ void present_kernel(LwwArgs a) {
+// One thread a key: decode the words, apply the losers' -1, gather
+// last_clear by XLA's rule, write the outputs.
+__global__ void __launch_bounds__(kThreads) keys_kernel(LwwArgs a) {
   const int stride = gridDim.x * blockDim.x;
   for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < a.G; g += stride) {
+    const unsigned long long sw = a.set_word[g];
+    const uint32_t top = (uint32_t)(sw >> 32);
+    const uint32_t low = ~a.low_word[g];  // all ones when empty
+    int win_set = unbiased((uint32_t)sw);
+    int win_val = unbiased((uint32_t)a.val_word[g]);
+    if (low < top) {  // a loser row: its -1 joins both maxima
+      win_set = max(win_set, -1);
+      win_val = max(win_val, -1);
+    }
     int d = a.key_doc[g];
     if (d < 0) d += a.docs;
     d = min(max(d, 0), a.docs - 1);
-    a.present[g] = a.win_set[g] == 1 && a.max_seq[g] > a.last_clear[d];
+    a.win_val[g] = win_val;
+    a.present[g] = win_set == 1 && unbiased(top) > unbiased(a.clear_word[d]);
   }
 }
 
@@ -134,10 +208,12 @@ int blocks_for(long long n) {
 extern "C" {
 
 // ptrs: key_gid, op_seq, is_set, val_idx [N]; key_doc [G]; clear_doc,
-// clear_seq [M]; the scratch max_seq, win_set [G] and last_clear [docs];
-// the outputs win_val [G] (int32) and present [G] (bool).  G >= 1 and
-// docs >= 1.  Returns cudaGetLastError() after the last launch (0 =
-// launched); a launch that is refused stops the sequence there.
+// clear_seq [M]; the scratch: 8 G bytes, 8 G bytes and 4 (G + docs)
+// bytes, each 8-byte aligned (one memset when the three are contiguous,
+// in that order); the outputs win_val [G] (int32) and present [G] (bool).
+// G >= 1 and docs >= 1.  Returns the first CUDA error of the memset and
+// the two launches (0 = launched); a step that is refused stops the
+// sequence there.
 int map_lww(void* const* ptrs, int N, int G, int M, int docs, void* stream) {
   if (G < 1 || docs < 1 || N < 0 || M < 0) return (int)cudaErrorInvalidValue;
   LwwArgs a;
@@ -148,9 +224,10 @@ int map_lww(void* const* ptrs, int N, int G, int M, int docs, void* stream) {
   a.key_doc = (const int32_t*)ptrs[4];
   a.clear_doc = (const int32_t*)ptrs[5];
   a.clear_seq = (const int32_t*)ptrs[6];
-  a.max_seq = (int32_t*)ptrs[7];
-  a.win_set = (int32_t*)ptrs[8];
-  a.last_clear = (int32_t*)ptrs[9];
+  a.set_word = (unsigned long long*)ptrs[7];
+  a.val_word = (unsigned long long*)ptrs[8];
+  a.low_word = (uint32_t*)ptrs[9];
+  a.clear_word = a.low_word + G;
   a.win_val = (int32_t*)ptrs[10];
   a.present = (uint8_t*)ptrs[11];
   a.N = N;
@@ -158,18 +235,23 @@ int map_lww(void* const* ptrs, int N, int G, int M, int docs, void* stream) {
   a.M = M;
   a.docs = docs;
   cudaStream_t s = (cudaStream_t)stream;
+  const size_t words = (size_t)G * 8;
+  const size_t tail = ((size_t)G + docs) * 4;
+  cudaError_t e;
+  if ((char*)ptrs[8] == (char*)ptrs[7] + words &&
+      (char*)ptrs[9] == (char*)ptrs[8] + words) {
+    e = cudaMemsetAsync(ptrs[7], 0, 2 * words + tail, s);
+  } else {
+    e = cudaMemsetAsync(ptrs[7], 0, words, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(ptrs[8], 0, words, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(ptrs[9], 0, tail, s);
+  }
+  if (e != cudaSuccess) return (int)e;
   const long long rows = N > M ? N : M;
-  const long long targets = G > docs ? G : docs;
-  init_kernel<<<blocks_for(targets), kThreads, 0, s>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  seq_kernel<<<blocks_for(rows), kThreads, 0, s>>>(a);
+  rows_kernel<<<blocks_for(rows), kThreads, 0, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  winner_kernel<<<blocks_for(N), kThreads, 0, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  present_kernel<<<blocks_for(G), kThreads, 0, s>>>(a);
+  keys_kernel<<<blocks_for(G), kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

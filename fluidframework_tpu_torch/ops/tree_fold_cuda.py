@@ -15,10 +15,14 @@ digest of tier 0:
 The kernel replaces the reference's XLA-traced device code K5
 (``fluidframework_tpu/ops/tree_kernel.py`` ``_apply_edit`` under
 ``replay_vmapped``, and ``tree_pipeline.tree_doc_digests``).  One warp
-folds one document; ``placement(N, C)`` says where its forest lives: in
-shared memory when it fits a block, else in its slice of the output
-planes in device memory.  Neither raises for size.  The source's header
-note says what bounds it on the card and what the design does about that.
+folds one document, one document a block; ``placement(N, C)`` says where
+its forest lives: in shared memory when its working set fits a block
+(``smem_layout``: with the walk table and a 64-row edit tile, or in the
+lean layout without the table and with a smaller tile), else in its slice
+of the output planes in device memory.  Neither raises for size.  The source's header note says what bounds it on the card and
+what the design does about that.  ``earlier_library()`` loads the earlier
+design (``csrc/tree_fold_earlier.cu``), the yardstick the kernel is timed
+against; no entry point launches it.
 
 ``fold.launches`` / ``fold_digest.launches`` count each entry's launches
 (and nothing else), ``.placements`` splits them by placement, and
@@ -36,12 +40,25 @@ from .tree_kernel import CONT_FIELDS, TreeEdits, TreeState, \
 
 #: shared memory one thread block can address on Hopper (bytes)
 SMEM_LIMIT = 232448
-#: documents (warps) a block, at most
-MAX_DOCS_PER_BLOCK = 4
+#: edit rows a document stages in shared memory at a time (``kTile``)
+EDIT_TILE = 64
 #: the C entry's pointers: state in (10), edits (8), state out (10),
 #: n_nodes, n_cont, digest
 _N_PTRS = 2 * len(TreeState._fields) + len(TreeEdits._fields) + 3
 _lib = None
+_earlier = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry's signature on a loaded build of
+    ``csrc/tree_fold.cu`` (or of another source with the same
+    ``tree_fold`` entry)."""
+    lib.tree_fold.restype = ctypes.c_int
+    lib.tree_fold.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    return lib
 
 
 def _library() -> ctypes.CDLL:
@@ -49,35 +66,86 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         from ._cuda_build import load
 
-        lib = load("tree_fold")
-        lib.tree_fold.restype = ctypes.c_int
-        lib.tree_fold.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        _lib = lib
+        _lib = bind(load("tree_fold"))
     return _lib
 
 
-def doc_bytes(N: int, C: int) -> int:
-    """Bytes of one document's forest in the kernel's working set: 7
-    node planes of N and 2 container planes of C int32 (the source's
-    ``doc_words``)."""
-    return 4 * (7 * N + 2 * C)
+class EarlierLaunch:
+    """A build of the earlier design (``csrc/tree_fold_earlier.cu``, or
+    another source with its launch rule) behind the C entry ``fold``
+    calls: it launches the way its own wrapper did, the forest alone in
+    shared memory when it fits a block and as many forests a block as fit,
+    at most 4, in place of the placement and the one document a block
+    ``fold`` passes.  Give it to ``fold`` / ``fold_digest`` as ``lib``."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib = lib
+
+    def tree_fold(self, ptrs, D, N, C, T, gmem, docs_per_block, stream):
+        forest = 4 * (7 * N + 2 * C)
+        fits = forest <= SMEM_LIMIT
+        per_block = max(1, min(4, SMEM_LIMIT // forest)) if fits else 4
+        return self.lib.tree_fold(ptrs, D, N, C, T, int(not fits),
+                                  per_block, stream)
+
+
+def earlier_library() -> EarlierLaunch:
+    """The earlier design of the kernel, built from
+    ``csrc/tree_fold_earlier.cu`` at first use and launched by its own
+    rule: the yardstick for measurements, never an entry point's."""
+    global _earlier
+    if _earlier is None:
+        from ._cuda_build import load
+
+        _earlier = EarlierLaunch(bind(load("tree_fold_earlier")))
+    return _earlier
+
+
+def doc_bytes(N: int, C: int, where: str = "smem", tile: int = EDIT_TILE,
+              table: bool = True) -> int:
+    """Shared memory one document takes (the source's ``doc_words``): the
+    mbarrier (16 B), the raw edit tile (8 planes of ``tile`` int32) and
+    the decoded rows (``tile + 1`` of 16 int32); in the shared-memory
+    placement also its forest (7 node planes of N and 2 container planes
+    of C int32, rounded up to an even count) and, with ``table``, the
+    walk table (N + 2 entries of two int32).  Rounded up to 16 bytes."""
+    words = 4 + 8 * tile + 16 * (tile + 1)
+    if where == "smem":
+        words += (7 * N + 2 * C + 1) // 2 * 2 + (2 * (N + 2) if table else 0)
+    return 4 * ((words + 3) // 4 * 4)
+
+
+def smem_layout(N: int, C: int):
+    """``(tile, table)`` of the shared-memory placement (the source's
+    ``smem_layout``): ``EDIT_TILE`` rows and the walk table when both fit
+    a block beside the forest; else the lean layout, no walk table and the
+    most rows, a multiple of 4, that fit; None when none does."""
+    if doc_bytes(N, C) <= SMEM_LIMIT:
+        return EDIT_TILE, True
+    for tile in range(EDIT_TILE, 0, -4):
+        if doc_bytes(N, C, "smem", tile, False) <= SMEM_LIMIT:
+            return tile, False
+    return None
 
 
 def placement(N: int, C: int) -> str:
-    """``"smem"`` when a document's forest fits a block's shared memory,
-    else ``"gmem"`` (its slice of the output planes)."""
-    return "smem" if doc_bytes(N, C) <= SMEM_LIMIT else "gmem"
+    """``"smem"`` when a document's working set fits a block's shared
+    memory in either layout, else ``"gmem"`` (its forest in its slice of
+    the output planes)."""
+    return "smem" if smem_layout(N, C) else "gmem"
 
 
-def docs_per_block(N: int, C: int, where: str) -> int:
-    """Warps a block: up to ``MAX_DOCS_PER_BLOCK``, as many forests as
-    fit a block's shared memory in the shared-memory placement."""
-    if where == "gmem":
-        return MAX_DOCS_PER_BLOCK
-    return max(1, min(MAX_DOCS_PER_BLOCK, SMEM_LIMIT // doc_bytes(N, C)))
+def launch_shape(D: int, N: int, C: int) -> dict:
+    """The launch ``fold`` / ``fold_digest`` make for ``D`` documents:
+    one block of one warp a document, the placement and layout
+    ``smem_layout`` picks (``edit_tile`` rows staged at a time, the walk
+    table or not) and ``doc_bytes`` of shared memory a block."""
+    layout = smem_layout(N, C)
+    where = "smem" if layout else "gmem"
+    tile, table = layout or (EDIT_TILE, False)
+    return {"placement": where, "docs_per_block": 1, "blocks": D,
+            "threads_per_block": 32, "edit_tile": tile, "walk_table": table,
+            "smem_bytes": doc_bytes(N, C, where, tile, table)}
 
 
 def _check(state: TreeState, edits: TreeEdits, device: torch.device):
@@ -114,7 +182,7 @@ def _check_counts(n_nodes, n_cont, D: int, device: torch.device) -> None:
                              f"{tuple(x.shape)} on {x.device}")
 
 
-def _launch(state: TreeState, edits: TreeEdits, counts, entry):
+def _launch(state: TreeState, edits: TreeEdits, counts, entry, lib=None):
     """Validate, allocate the outputs, launch in the placement
     ``placement(N, C)`` picks and count the launch on ``entry`` (a chunk
     of no documents launches nothing and counts nothing); returns
@@ -135,11 +203,10 @@ def _launch(state: TreeState, edits: TreeEdits, counts, entry):
     assert len(tensors) == _N_PTRS
     ptrs = (ctypes.c_void_p * _N_PTRS)(
         *[None if t is None else t.data_ptr() for t in tensors])
-    lib = _library()
+    lib = lib or _library()
     with torch.cuda.device(device):
         rc = lib.tree_fold(
-            ptrs, D, N, C, T, int(where == "gmem"),
-            docs_per_block(N, C, where),
+            ptrs, D, N, C, T, int(where == "gmem"), 1,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"tree_fold launch failed ({where}): CUDA error "
@@ -156,28 +223,30 @@ def _on(device: torch.device, entry: str) -> bool:
     return device.type == "cuda"
 
 
-def fold(state: TreeState, edits: TreeEdits) -> TreeState:
+def fold(state: TreeState, edits: TreeEdits, *, lib=None) -> TreeState:
     """The final forest of every document (new tensors; the inputs are
     not written): the plain fold for CPU tensors, the kernel for CUDA
-    tensors."""
+    tensors.  ``lib`` (another build with the same C entry, ``bind`` it
+    first, or ``earlier_library()``) overrides the kernel's library, for
+    measurements and tests."""
     if not _on(state.next.device, "fold"):
         return tree_fold_reference(state, edits)
-    out, _dig = _launch(state, edits, None, fold)
+    out, _dig = _launch(state, edits, None, fold, lib)
     return out
 
 
 def fold_digest(state: TreeState, edits: TreeEdits, n_nodes: torch.Tensor,
-                n_cont: torch.Tensor):
+                n_cont: torch.Tensor, *, lib=None):
     """``(final forest, [D, 2] int32 digest)``: ``fold`` with the
     reference's ``tree_doc_digests`` of the final forest (``n_nodes`` /
     ``n_cont`` the int32 ``[D]`` used-row counts it masks by), fused
-    into the kernel's epilogue on the card."""
+    into the kernel's epilogue on the card; ``lib`` as for ``fold``."""
     if not _on(state.next.device, "fold_digest"):
         from .tree_pipeline import tree_doc_digests
 
         final = tree_fold_reference(state, edits)
         return final, tree_doc_digests(final, n_nodes, n_cont)
-    return _launch(state, edits, (n_nodes, n_cont), fold_digest)
+    return _launch(state, edits, (n_nodes, n_cont), fold_digest, lib)
 
 
 def reset_launches() -> None:

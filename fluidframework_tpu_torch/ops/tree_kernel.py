@@ -153,13 +153,15 @@ def _in_subtree(st: dict, start, target, alive, work=None):
     deep)``, where ``hit`` says the walk met ``target`` and ``deep`` that
     it was still going after ``MAX_DEPTH`` steps (the root not reached).
     A walk that stops stays stopped, so the loop ends once none goes on;
-    ``work["walk_steps"]`` (when given) counts the steps walked."""
+    ``work["walk_steps"]`` (when given) counts the steps walked, and
+    ``work["doc_walk_steps"]`` each document's."""
     cur, hit = start, torch.zeros_like(alive)
     for _ in range(MAX_DEPTH):
         if not bool(alive.any()):
             break
         if work is not None:
             work["walk_steps"] += int(alive.sum())
+            work["doc_walk_steps"] += alive.long()
         hit = hit | (alive & (cur == target))
         c = torch.where(alive & (cur != NIL),
                         _gather(st["node_container"], cur), NIL)
@@ -220,10 +222,13 @@ def tree_fold_reference(state: TreeState, edits: TreeEdits,
     reference's ``replay_vmapped`` on every plane, padding rows included.
     Tensors in, tensors out, on their device.  ``work`` (a dict, when
     given) gets ``walk_steps``, the ancestor-walk steps these inputs took,
-    for a measurement's operation count."""
+    for a measurement's operation count, and ``doc_walk_steps``, each
+    document's (int64 ``[D]``)."""
     st = {f: x.clone() for f, x in state._asdict().items()}
     if work is not None:
         work.setdefault("walk_steps", 0)
+        work.setdefault("doc_walk_steps", torch.zeros(
+            state.next.shape[0], dtype=torch.long, device=state.next.device))
     T = edits.kind.shape[1]
     for t in range(T):
         _apply_edit_row(st, {f: x[:, t] for f, x in edits._asdict().items()},

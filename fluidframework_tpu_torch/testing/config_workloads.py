@@ -8,7 +8,9 @@ Every message rides a fully sequential view (``ref_seq = seq - 1``), so
 these workloads never resolve in a lagging view; the committed fixtures
 (``hard_map_docs.json``, ``hard_matrix_docs.json``, read by ``hard_*``
 below) carry the concurrent cases, and ``crafted_map_docs`` /
-``crafted_matrix_doc`` the edge cases the kernels must get right.
+``crafted_matrix_doc`` the edge cases the kernels must get right;
+``adversarial_lww_inputs`` makes the map reduction's packed inputs
+straight from a seed, off the packer's layout and values.
 """
 
 from __future__ import annotations
@@ -204,6 +206,62 @@ def crafted_map_docs(case: str) -> List[MapDocInput]:
                 + crafted_map_docs("exact-bucket")
                 + crafted_map_docs("delete-only"))
     raise ValueError(case)
+
+
+#: the shape of ``adversarial_lww_inputs``: op rows, key buckets, clear
+#: rows, documents
+ADVERSARIAL_LWW_SHAPE = (4096, 96, 64, 11)
+
+
+def adversarial_lww_inputs(seed: int):
+    """``(LWWInputs of int32 numpy arrays, num_docs)``: the map reduction's
+    seven inputs made from ``seed``, off the packer's layout and values,
+    for holding the plain reduction to the JAX package's and the kernel
+    to the plain one on every int32 input.  The rows are shuffled out of
+    document order; one key holds 3,000 of the 4,096 rows;
+    ``is_set`` / ``val_idx`` take values far below -1 and above 1, the
+    int32 extremes included; ``key_gid`` and ``clear_doc`` run out of
+    range on both sides; ``key_doc`` counts from the end or past it;
+    seqs tie, at ``INT32_MIN`` too.  Three keys are fixed: a winner whose
+    payloads are below -1 beside a loser (both outputs read -1), tied
+    winners below -1 with no loser, and a key whose rows all sit at
+    ``INT32_MIN``."""
+    import numpy as np
+
+    from ..ops.map_kernel import LWWInputs
+
+    N, G, M, docs = ADVERSARIAL_LWW_SHAPE
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+    rng = np.random.RandomState(seed)
+
+    def draw(n, low, high, odd):
+        """Small ints, with ~30% of the entries drawn from ``odd``."""
+        a = rng.randint(low, high, size=n).astype(np.int64)
+        pick = rng.rand(n) < 0.3
+        a[pick] = rng.choice(odd, size=int(pick.sum()))
+        return a
+
+    extremes = [lo, lo + 1, -1000, -2, -1, 0, 1, 2, 1000, hi]
+    key_gid = draw(N, 0, G, [-1, -7, G, G + 5, lo, hi])
+    key_gid[rng.rand(N) < 3000 / N] = 5
+    op_seq = draw(N, -3, 5, [lo, lo + 1, hi, -1])
+    is_set = draw(N, -5, 5, extremes)
+    val_idx = draw(N, -5, 12, extremes)
+    # key 7: a winner (seq 9) with payloads below -1 and a loser (seq 3);
+    # key 8: tied winners below -1, no loser; key 9: every row at INT32_MIN
+    fixed = [(7, 9, -7, -9), (7, 3, 1, 4), (8, 6, -7, -3), (8, 6, -5, -8),
+             (9, lo, lo, lo), (9, lo, -5, lo)]
+    key_gid[np.isin(key_gid, (7, 8, 9))] = 5
+    for i, row in enumerate(fixed):
+        key_gid[i], op_seq[i], is_set[i], val_idx[i] = row
+    order = rng.permutation(N)
+    key_doc = draw(G, 0, docs, [-1, -docs, -docs - 4, docs, docs + 3, lo, hi])
+    clear_doc = draw(M, 0, docs, [-1, -3, docs, docs + 2, lo, hi])
+    clear_seq = draw(M, -3, 5, [lo, lo + 1, hi])
+    arrays = [key_gid[order], op_seq[order], is_set[order], val_idx[order],
+              key_doc, clear_doc, clear_seq]
+    return LWWInputs(*(np.ascontiguousarray(a, dtype=np.int32)
+                       for a in arrays)), docs
 
 
 #: the matrix cases (``crafted_matrix_doc``)

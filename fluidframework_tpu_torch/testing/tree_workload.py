@@ -10,8 +10,9 @@ of the reference's ``run_tree_rebase``.
 
 ``random_tree_arrays`` makes packed forest and edit planes straight from
 a seed, every index in its plane's domain (NIL included) but with no
-structure: the kernel and the plain fold must agree on any such input,
-padding rows too.  ``crafted_tree_cases`` are small hand-built planes for
+structure, and ``wild_tree_arrays`` the same with values far outside it:
+the kernel and the plain fold must agree on any such input, padding rows
+too.  ``crafted_tree_cases`` are small hand-built planes for
 the fold's NIL-index and aliasing rules.
 """
 
@@ -228,6 +229,31 @@ def random_tree_arrays(seed: int, D: int, N: int, C: int, T: int
         container=ints(0, C, (D, T)), anchor=ints(-1, N, (D, T)),
         first=ints(0, N, (D, T)), tail=ints(0, N, (D, T)),
         value=ints(-1, 40, (D, T)), purge_msn=ints(-1, 60, (D, T)))
+    return state, edits
+
+
+def wild_tree_arrays(seed: int, D: int, N: int, C: int, T: int
+                     ) -> Tuple[TreeState, TreeEdits]:
+    """``random_tree_arrays`` with about 15% of every int32 entry but the
+    edit kinds replaced by a value far outside its plane: the int32
+    extremes, -2, counts from the end past the plane (-N - 3, -3N, -C)
+    and indices past it (N, N + 1, 3N, C + 2).  The index rules at both
+    ends of the int32 range then decide every read and write."""
+    state, edits = random_tree_arrays(seed, D, N, C, T)
+    rng = np.random.RandomState(seed + 7919)
+    odd = np.array([-2 ** 31, 2 ** 31 - 1, -1, -2, -N - 3, -3 * N, N, N + 1,
+                    3 * N, -C, C + 2], dtype=np.int64)
+
+    def spoil(a):
+        a = a.astype(np.int64)
+        pick = rng.rand(*a.shape) < 0.15
+        a[pick] = rng.choice(odd, size=int(pick.sum()))
+        return a.astype(np.int32)
+
+    state = TreeState(**{f: x if f == "overflow" else spoil(x)
+                         for f, x in state._asdict().items()})
+    edits = TreeEdits(**{f: x if f == "kind" else spoil(x)
+                         for f, x in edits._asdict().items()})
     return state, edits
 
 

@@ -390,6 +390,153 @@ def test_tree_kernel_flags_the_deep_walk(cuda):
     assert int(got.node_container[1, 3]) == 75
 
 
+def _tree_block_corpora():
+    """Tree planes for the launch shapes: the crafted NIL cases (T not a
+    multiple of 4: plain copies), 37 random forests whose rows are whole
+    16-byte units over two edit tiles (bulk copies), 37 whose rows are
+    not (N = 30, C = 10, T = 45: plain copies, two tiles), 37 with values
+    far outside their planes, and 3 with no edit rows (T = 0)."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    out = {f"crafted-{k}": v for k, v in tw.crafted_tree_cases().items()}
+    out["random-bulk"] = tw.random_tree_arrays(11, 37, 64, 32, 80)
+    out["random-plain"] = tw.random_tree_arrays(12, 37, 30, 10, 45)
+    out["wild"] = tw.wild_tree_arrays(13, 37, 64, 32, 80)
+    st, ed = tk.empty_tree_arrays(3, 16, 8, 0)
+    out["no-edits"] = (tk.TreeState(**st), tk.TreeEdits(**ed))
+    return out
+
+
+def _fold_and_compare(cuda, build, st_np, ed_np, **kw):
+    """One launch of ``build`` on the card against the plain fold (and
+    digest): every plane with its padding rows, bit for bit."""
+    from fluidframework_tpu_torch.ops import tree_fold_cuda
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops.tree_pipeline import tree_doc_digests
+
+    state, edits = tensors_to(st_np, cuda), tensors_to(ed_np, cuda)
+    entry = getattr(tree_fold_cuda, build)
+    before = entry.launches
+    if build == "fold":
+        got = entry(state, edits, **kw)
+    else:
+        n, c = (x.to(cuda) for x in _tree_counts(state))
+        got, dig = entry(state, edits, n, c, **kw)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    want = tk.tree_fold_reference(state, edits)
+    _assert_tree_equal(want, got)
+    if build == "fold_digest":
+        assert torch.equal(tree_doc_digests(want, n, c), dig)
+
+
+@pytest.mark.parametrize("build", ["fold", "fold_digest"])
+def test_tree_kernel_matches_plain_on_every_copy_path(cuda, build):
+    """One document a block, 37 documents, on bulk-copied and plainly
+    copied rows, the crafted NIL cases, values far outside their planes
+    and no edit rows: the kernel equals the plain fold and digest."""
+    for name, (st_np, ed_np) in _tree_block_corpora().items():
+        _fold_and_compare(cuda, build, st_np, ed_np)
+
+
+@pytest.mark.parametrize("build", ["fold", "fold_digest"])
+def test_tree_earlier_design_matches_the_kernel(cuda, build):
+    """The yardstick the kernel is timed against (its earlier design, at
+    its own launch) gives the kernel's result on the same corpora, so a
+    time of one is a time of the same work as the other."""
+    for name, (st_np, ed_np) in _tree_block_corpora().items():
+        _fold_and_compare(cuda, build, st_np, ed_np,
+                          lib=_earlier("tree_fold_cuda"))
+
+
+def _earlier(module):
+    import importlib
+
+    return importlib.import_module(
+        f"fluidframework_tpu_torch.ops.{module}").earlier_library()
+
+
+@pytest.mark.parametrize("build", ["fold", "fold_digest"])
+def test_tree_kernel_folds_at_the_shared_memory_edge(cuda, build):
+    """Forests at each edge of the placements, 3 documents each, against
+    the plain fold: the largest full layout (N = 6,268, C = 64), the lean
+    layout just past it (64 rows a tile), a chunk of bucket shape in the
+    lean layout (N = 8,192, C = 256: 8 rows a tile, bulk copies, eight
+    tiles; also with values far outside the planes), the largest lean
+    forest (N = 8,266: 4 rows a tile), and the next size up in device
+    memory."""
+    from fluidframework_tpu_torch.ops import tree_fold_cuda
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    entry = getattr(tree_fold_cuda, build)
+    for N, C, T, layout in ((6268, 64, 16, (64, True)),
+                            (6272, 64, 16, (64, False)),
+                            (8192, 256, 64, (8, False)),
+                            (8266, 64, 16, (4, False)),
+                            (8267, 64, 16, None)):
+        assert tree_fold_cuda.smem_layout(N, C) == layout
+        where = "smem" if layout else "gmem"
+        before = entry.placements[where]
+        _fold_and_compare(cuda, build, *tw.random_tree_arrays(N, 3, N, C,
+                                                              T))
+        assert entry.placements[where] == before + 1
+    _fold_and_compare(cuda, build, *tw.wild_tree_arrays(8192, 3, 8192, 256,
+                                                        64))
+
+
+class _RefusingLibrary:
+    """A kernel library whose every C entry reports a CUDA error."""
+
+    @staticmethod
+    def tree_fold(*args):
+        return 98  # cudaErrorInvalidDeviceFunction
+
+    @staticmethod
+    def map_lww(*args):
+        return 98
+
+
+class _TwoABlock:
+    """The kernel's library asked for two documents a block, which its C
+    entry does not take."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def tree_fold(self, ptrs, D, N, C, T, gmem, docs_per_block, stream):
+        return self.lib.tree_fold(ptrs, D, N, C, T, gmem, 2, stream)
+
+
+def test_kernels_raise_and_never_fall_back_on_the_card(cuda):
+    """On CUDA tensors a refused launch raises (a library that reports an
+    error, a documents-a-block value the source does not take) and counts
+    nothing: no wrapper returns the plain version instead."""
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import map_lww_cuda, tree_fold_cuda
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+    from fluidframework_tpu_torch.testing import tree_workload as tw
+
+    st_np, ed_np = tw.random_tree_arrays(5, 9, 16, 8, 16)
+    state, edits = tensors_to(st_np, cuda), tensors_to(ed_np, cuda)
+    n, c = (x.to(cuda) for x in _tree_counts(state))
+    for build in ("fold", "fold_digest"):
+        entry = getattr(tree_fold_cuda, build)
+        args = (state, edits) if build == "fold" else (state, edits, n, c)
+        before = entry.launches
+        with pytest.raises(RuntimeError, match="tree_fold launch failed"):
+            entry(*args, lib=_RefusingLibrary())
+        with pytest.raises(RuntimeError, match="tree_fold launch failed"):
+            entry(*args, lib=_TwoABlock(tree_fold_cuda._library()))
+        assert entry.launches == before
+    batch = mp.pack_map_batch(cw.crafted_map_docs("mixed"))
+    inputs = mp.lww_inputs(batch, cuda)
+    before = map_lww_cuda.lww.launches
+    with pytest.raises(RuntimeError, match="map_lww launch failed"):
+        map_lww_cuda.lww(inputs, batch.num_docs, lib=_RefusingLibrary())
+    assert map_lww_cuda.lww.launches == before
+
+
 def test_tree_splice_along_three_axes_matches_plain(cuda):
     """A grown tree chunk through tier 2.5 on the card: the resident
     entry splices its edit, node and container rows in place (three
@@ -548,6 +695,40 @@ def test_map_lww_kernel_matches_plain_on_every_key(cuda, corpus):
     assert got_present.dtype == torch.bool and got_val.dtype == torch.int32
     assert torch.equal(want_present, got_present)
     assert torch.equal(want_val, got_val)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_map_lww_kernel_matches_plain_on_adversarial_inputs(cuda, seed):
+    """Inputs no packer emits (``adversarial_lww_inputs``: shuffled rows,
+    a key of thousands of rows spread over many warps, payloads below -1
+    beside losers, ids out of range, negative ``key_doc``, ties at
+    INT32_MIN): the kernel equals the plain reduction on every key."""
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import map_lww_cuda
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    x, docs = cw.adversarial_lww_inputs(seed)
+    inputs = mp.LWWInputs(*(torch.from_numpy(a).to(cuda) for a in x))
+    got_present, got_val = map_lww_cuda.lww(inputs, docs)
+    want_present, want_val = mp.map_lww_reference(inputs, docs)
+    assert torch.equal(want_present, got_present)
+    assert torch.equal(want_val, got_val)
+
+
+@pytest.mark.parametrize("corpus", sorted(_map_corpora()))
+def test_map_earlier_design_matches_the_kernel(cuda, corpus):
+    """The yardstick the kernel is timed against (its earlier design)
+    gives the kernel's result on every key of the packed corpora."""
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import map_lww_cuda
+
+    batch = mp.pack_map_batch(_map_corpora()[corpus]())
+    inputs = mp.lww_inputs(batch, cuda)
+    want = map_lww_cuda.lww(inputs, batch.num_docs)
+    got = map_lww_cuda.lww(inputs, batch.num_docs,
+                           lib=_earlier("map_lww_cuda"))
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
 
 
 def test_map_lww_kernel_counts_no_launch_for_no_keys(cuda):

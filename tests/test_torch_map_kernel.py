@@ -147,6 +147,45 @@ def test_plain_lww_matches_jax_kernel_on_every_key(corpus):
     np.testing.assert_array_equal(np.asarray(want_val), got_val.numpy())
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_plain_lww_matches_jax_kernel_on_adversarial_inputs(seed):
+    """Inputs no packer emits (``adversarial_lww_inputs``: shuffled rows,
+    a key of thousands of rows, payloads below -1 and above 1, ids out of
+    range on both sides, negative ``key_doc``, ties at INT32_MIN): the
+    plain reduction equals the JAX package's on every key entry."""
+    x, docs = cw.adversarial_lww_inputs(seed)
+    N, G, M, _docs = cw.ADVERSARIAL_LWW_SHAPE
+    want_present, want_val = ref_mp._map_lww_kernel(
+        *x, num_keys=G, num_docs=docs)
+    got_present, got_val = map_lww_cuda.lww(
+        mp.LWWInputs(*(torch.from_numpy(a) for a in x)), docs)
+    np.testing.assert_array_equal(np.asarray(want_present),
+                                  got_present.numpy())
+    np.testing.assert_array_equal(np.asarray(want_val), got_val.numpy())
+
+
+def test_adversarial_inputs_hold_the_cases_they_name():
+    """The generator's inputs do hold what its tests rely on: rows out of
+    document order, a key of thousands of rows, payloads below -1 that
+    win beside a loser (the -1 a loser adds shows in both outputs), every
+    out-of-range id, and the three fixed keys' answers."""
+    x, docs = cw.adversarial_lww_inputs(0)
+    N, G, M, _docs = cw.ADVERSARIAL_LWW_SHAPE
+    gid = x.key_gid
+    assert np.bincount(gid[(gid >= 0) & (gid < G)]).max() >= 2000
+    assert (np.diff(gid) < 0).sum() > N // 8
+    for a in (x.is_set, x.val_idx):
+        assert (a < -1).sum() > 100 and (a > 1).sum() > 100
+        assert a.min() == -2 ** 31 and a.max() == 2 ** 31 - 1
+    assert (gid < 0).any() and (gid >= G).any()
+    assert (x.clear_doc < 0).any() and (x.clear_doc >= docs).any()
+    assert (x.key_doc < 0).any() and (x.key_doc >= docs).any()
+    present, win_val = map_lww_cuda.lww(
+        mp.LWWInputs(*(torch.from_numpy(a) for a in x)), docs)
+    assert win_val[7:10].tolist() == [-1, -3, -2 ** 31]
+    assert not present[7:10].any()
+
+
 def test_padding_keys_read_int32_min():
     """Key entries past the real keys are empty segments: INT32_MIN in
     ``win_val``, never present.  The last one takes the padding op rows
@@ -207,6 +246,29 @@ def test_plain_version_counts_no_launch():
     before = map_lww_cuda.lww.launches
     mp.replay_map_batch(docs, device="cpu")
     assert map_lww_cuda.lww.launches == before
+
+
+def test_launch_shape_follows_the_source():
+    """``launch_shape`` mirrors the C entry: its thread count and grid cap
+    are the source's, the row pass covers ``max(N, M)`` rows, and the
+    scratch is two 64-bit and one 32-bit word a key and a word a
+    document."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(map_lww_cuda.__file__), "..",
+                           "csrc", "map_lww.cu")) as f:
+        src = f.read()
+    assert re.search(rf"constexpr int kThreads = {map_lww_cuda.THREADS};",
+                     src)
+    assert re.search(r"constexpr int kMaxBlocks = 132 \* 16;", src)
+    assert map_lww_cuda.MAX_BLOCKS == 132 * 16
+    shape = map_lww_cuda.launch_shape(1048576, 262144, 32768, 10240)
+    assert shape == {"threads_per_block": 256, "row_blocks": 2112,
+                     "key_blocks": 1024, "smem_bytes": 0,
+                     "scratch_bytes": 20 * 262144 + 4 * 10240}
+    assert map_lww_cuda.launch_shape(64, 64, 100, 1)["row_blocks"] == 1
+    assert map_lww_cuda.launch_shape(0, 1, 0, 1)["row_blocks"] == 1
 
 
 def test_entry_point_without_device_raises_when_no_cuda(monkeypatch):

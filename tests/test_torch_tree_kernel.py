@@ -137,6 +137,16 @@ def test_plain_fold_matches_replay_vmapped_on_random_planes(seed):
     _assert_planes_equal(ref, got)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_plain_fold_matches_replay_vmapped_on_wild_planes(seed):
+    """Indices and values far outside their planes (the int32 extremes,
+    counts from the end past the plane): XLA's read and write rules at
+    both ends of the range, in the reference and the plain fold alike."""
+    state, edits = tw.wild_tree_arrays(seed, 12, 32, 16, 48)
+    ref, got = _fold_both(state, edits)
+    _assert_planes_equal(ref, got)
+
+
 @pytest.mark.parametrize("case", sorted(tw.crafted_tree_cases()))
 def test_plain_fold_matches_replay_vmapped_on_crafted_nil_cases(case):
     state, edits = tw.crafted_tree_cases()[case]
@@ -225,7 +235,123 @@ def test_wrapper_checks_what_the_kernel_reads():
             tree_fold_cuda._check(s, e, CPU)
     assert tree_fold_cuda.placement(256, 128) == "smem"
     assert tree_fold_cuda.placement(8192, 4096) == "gmem"
-    assert tree_fold_cuda.docs_per_block(256, 128, "smem") == 4
+    assert tree_fold_cuda.launch_shape(1024, 256, 128)["docs_per_block"] \
+        == 1
+
+
+def test_shared_memory_a_document_matches_the_source():
+    """``doc_bytes`` is the source's ``doc_words``: the mbarrier, the raw
+    edit tile and the decoded rows, and in shared memory the forest and
+    (in the full layout) the walk table; ``smem_layout`` picks the full
+    layout, else the lean one with the most rows that fit."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(tree_fold_cuda.__file__),
+                           "..", "csrc", "tree_fold.cu")) as f:
+        src = f.read()
+    assert re.search(rf"constexpr int kTile = {tree_fold_cuda.EDIT_TILE};",
+                     src)
+    assert re.search(r"constexpr int kRowWords = 16;", src)
+    assert re.search(rf"constexpr int kSmemLimit = "
+                     rf"{tree_fold_cuda.SMEM_LIMIT};", src)
+    rows = 4 + 8 * 64 + 16 * 65
+    assert tree_fold_cuda.doc_bytes(256, 128) == 4 * (
+        rows + 7 * 256 + 2 * 128 + 2 * 258) == 16480
+    assert tree_fold_cuda.doc_bytes(256, 128, "gmem") == 4 * rows
+    # odd sizes: the forest rounds up to an even count, the whole to 16 B
+    assert rows + 280 + 78 == 1914
+    assert tree_fold_cuda.doc_bytes(37, 10) == 4 * 1916
+    # the lean layout: no walk table, fewer rows a tile
+    assert tree_fold_cuda.doc_bytes(8192, 128, "smem", 20, False) == 4 * (
+        4 + 8 * 20 + 16 * 21 + 7 * 8192 + 2 * 128) == 232400
+    # the edges at C = 64: the full layout up to N = 6,268, the lean one
+    # (64 rows a tile, then fewer) up to N = 8,266, then device memory
+    assert tree_fold_cuda.smem_layout(6268, 64) == (64, True)
+    assert tree_fold_cuda.smem_layout(6272, 64) == (64, False)
+    assert tree_fold_cuda.smem_layout(8266, 64) == (4, False)
+    assert tree_fold_cuda.smem_layout(8267, 64) is None
+    assert tree_fold_cuda.placement(8266, 64) == "smem"
+    assert tree_fold_cuda.placement(8267, 64) == "gmem"
+
+
+def test_shared_memory_holds_every_forest_the_earlier_design_did():
+    """Every bucket shape (powers of two, as the packer sizes N and C)
+    whose forest alone fits a block, which the earlier design folded in
+    shared memory, still folds there."""
+    limit = tree_fold_cuda.SMEM_LIMIT
+    held = [(N, C) for N in (2 ** k for k in range(4, 16))
+            for C in (2 ** k for k in range(3, 16))
+            if 4 * (7 * N + 2 * C) <= limit]
+    assert (8192, 256) in held and (8192, 512) not in held
+    assert [(N, C) for N, C in held
+            if tree_fold_cuda.placement(N, C) != "smem"] == []
+
+
+@pytest.mark.parametrize("D, N, C, where, tile, table, smem", [
+    (1024, 256, 128, "smem", 64, True, 16480),   # the pinned chunk
+    (37, 37, 10, "smem", 64, True, 7664),
+    (1024, 8192, 128, "smem", 20, False, 232400),  # lean
+    (1024, 8192, 256, "smem", 8, False, 232272),   # lean, fewer rows
+    (5, 8192, 4096, "gmem", 64, False, 6224),   # device memory
+])
+def test_launch_shape_is_one_document_a_block(D, N, C, where, tile, table,
+                                              smem):
+    """One block of one warp a document, with the working set of the
+    placement and layout ``fold`` picks as its shared memory."""
+    assert tree_fold_cuda.launch_shape(D, N, C) == {
+        "placement": where, "docs_per_block": 1, "blocks": D,
+        "threads_per_block": 32, "edit_tile": tile, "walk_table": table,
+        "smem_bytes": smem}
+    assert tree_fold_cuda.doc_bytes(N, C, where, tile, table) == smem
+
+
+class _Entry:
+    """A stand-in for a kernel library's ``tree_fold`` entry that records
+    the launch it is asked for."""
+
+    def __init__(self):
+        self.asked = []
+
+    def tree_fold(self, ptrs, D, N, C, T, gmem, docs_per_block, stream):
+        self.asked.append((gmem, docs_per_block))
+        return 0
+
+
+@pytest.mark.parametrize("N, C, gmem, per_block", [
+    (256, 128, 0, 4),       # the pinned chunk: 8 KiB forests, 4 a block
+    (2048, 1024, 0, 3),     # 65,536 B forests: 3 fit a block
+    (8192, 128, 0, 1),      # 230,400 B: one fits, barely
+    (8192, 512, 1, 4),      # 233,472 B: past a block, device memory
+])
+def test_earlier_design_launches_by_its_own_rule(N, C, gmem, per_block):
+    """The yardstick takes the launch its own wrapper made (the forest
+    alone in shared memory when it fits, as many a block as fit, at most
+    4), whatever ``fold`` passes, and hands back the entry's code."""
+    lib = _Entry()
+    rc = tree_fold_cuda.EarlierLaunch(lib).tree_fold(
+        None, 8, N, C, 64, 0, 1, None)
+    assert rc == 0
+    assert lib.asked == [(gmem, per_block)]
+
+
+@pytest.mark.parametrize("name, entry", [
+    ("tree_fold", "int tree_fold(void* const* ptrs, int D, int N, int C, "
+                  "int T, int gmem,\n              int docs_per_block, "
+                  "void* stream)"),
+    ("map_lww", "int map_lww(void* const* ptrs, int N, int G, int M, "
+                "int docs, void* stream)"),
+])
+def test_earlier_design_keeps_the_kernels_c_entry(name, entry):
+    """The yardstick source and the kernel's source declare the same C
+    entry, so one binding (``bind``) drives both."""
+    import os
+
+    csrc = os.path.join(os.path.dirname(tree_fold_cuda.__file__), "..",
+                        "csrc")
+    for source in (f"{name}.cu", f"{name}_earlier.cu"):
+        with open(os.path.join(csrc, source)) as f:
+            assert f.read().count(entry) == 1, source
 
 
 @pytest.mark.parametrize("corpus", sorted(CORPORA))
