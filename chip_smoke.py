@@ -6,10 +6,12 @@ only the port (``fluidframework_tpu_torch``), torch and numpy, builds the
 port's libraries from the sources in the checkout, and runs in order:
 
 0. card and build — the card's name and power limit, then the C++ packer
-   (g++) and the four kernel sources (nvcc) built side by side, with the
-   compiler's register/spill report and the launch each build of the
-   kernel takes (blocks and documents per SM) at the pinned, long-tail
-   and large shapes;
+   (g++) and the kernel sources (nvcc: the merge-tree fold, the resident
+   kernels, the tree fold, the map reduction, the matrix fold, and the
+   earlier designs kept beside three of them) built side by side, with
+   the compiler's register/spill report and the launch each build of the
+   merge-tree kernel takes (blocks and documents per SM) at the pinned,
+   long-tail and large shapes, and the matrix fold's;
 1. kernel vs plain, hard semantics — the committed fixture folded by the
    state-out kernel and by the plain PyTorch fold on the card: every slot
    of every plane, ``n`` and ``overflow`` bit-equal, and the int32
@@ -48,8 +50,9 @@ port's libraries from the sources in the checkout, and runs in order:
    off, and the pinned resident-state tier below its working set (spill,
    then restore); every pass equal to the one batch of the same windows;
    the resident kernels (``csrc/resident.cu``: the in-place splice and the
-   narrow-to-wide migration) held against their plain versions on the
-   phase's own resident buffers and timed;
+   narrow-to-wide migration) held against their plain versions and their
+   earlier design (``csrc/resident_earlier.cu``) on the phase's own
+   resident buffers, and timed beside it;
 8. SharedTree catch-up at full width (``tree_phase``, after the
    reference's ``run_tree_rebase``): the pinned tree workload (10,240
    documents x 48 edits, five shapes) through ``pipelined_tree_replay``
@@ -58,9 +61,11 @@ port's libraries from the sources in the checkout, and runs in order:
    an oracle sample of every shape byte-identical, the byte counters and
    per-reason fallback counts equal to the JAX package's for the same
    workload, the exact pass moving nothing up and the digest plane down,
-   the splice on the grown pass, the resident entries equal to the
-   grown chunks' planes, and the splice held against its plain version
-   along the tree's three row axes; both builds of the tree kernel
+   the splice on the grown pass (one launch a chunk for its three row
+   axes), the resident entries equal to the grown chunks' planes, and the
+   splice held against its plain version and its earlier design along the
+   tree's three row axes, and in one launch; both builds of the tree
+   kernel
    (``csrc/tree_fold.cu``: state out, and with the fused digest) held
    against the plain fold and digest on a pinned chunk, padding rows
    included, and timed;
@@ -71,22 +76,30 @@ port's libraries from the sources in the checkout, and runs in order:
    its plain version and the library chain on every key entry (the main
    batch, the fixture, the crafted empty-segment cases) and timed;
 10. SharedMatrix catch-up at full width (``matrix_phase``, config #4):
-   ``replay_matrix_batch`` over 10,240 x ``gen_matrix_doc(i, 64)``, one
-   launch of the fold's resolving build in shared memory, every summary
-   equal to the oracle's, the stage split and the rate; the fixture's
-   routing counts equal to the JAX package's; the resolving build held
-   against the plain fold (every plane and resolved handle) on the main
-   batch, the fixture, the crafted resolve cases and 16 documents of
-   2,048 ops, which the entry folds in device memory; both builds timed;
+   ``replay_matrix_batch`` over 10,240 x ``gen_matrix_doc(i, 64)`` (a
+   cold batch: no state up), one launch of the matrix fold
+   (``csrc/matrix_fold.cu``) in shared memory, every summary equal to the
+   oracle's, the stage split, the transfer bytes and the rate; the
+   fixture's routing counts equal to the JAX package's; the fold held
+   against the plain fold and its earlier design (the resolving build of
+   ``csrc/mergetree_fold.cu``), every plane and resolved handle, cold and
+   warm, on the main batch, the fixture, the crafted resolve cases and 16
+   documents of 2,048 ops (S = 4,096, one launch in shared memory through
+   the entry too); a violated fact (an obliterate row, a props write, an
+   obliterate stamp) counted and raised; both batches timed beside the
+   earlier design;
 11. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
-   resident kernels, the two tree builds, the two resolving builds and
-   the map kernel; the tree and map rows also carry ``earlier_ms``, the
-   time of the kernel's earlier design (``csrc/*_earlier.cu``, built
-   with the kernels) on the same inputs in this run, held bit-equal to
-   the kernel, and their ``launch_shape``, the tree rows the walk steps
-   and the longest document's edit rows plus walk steps).
+   resident kernels, the two tree builds, the matrix fold at both shapes
+   and the map kernel; every row but the merge-tree fold's also carries
+   ``earlier_ms``, the time of the kernel's earlier design
+   (``csrc/*_earlier.cu``, or for the matrix fold the resolving build of
+   ``csrc/mergetree_fold.cu``, built with the kernels) on the same inputs
+   in this run, held bit-equal to the kernel; the tree, map and matrix
+   rows their ``launch_shape``, the tree rows the walk steps and the
+   longest document's edit rows plus walk steps, the matrix rows the
+   bound of the work the cold design must do, ``design_bound_ms``).
 
 Each driven path (the one-batch entry, the state path, the large-S
 paths, the pipeline, each warm pass, each tree pass, the map and matrix
@@ -151,15 +164,18 @@ TREE_ORACLE_HEAD, TREE_ORACLE_EVERY = 32, 40
 #: block's shared memory)
 MAP_DOCS, MAP_OPS = 10240, 96
 MATRIX_DOCS, MATRIX_OPS = 10240, 64
-MATRIX_GMEM_DOCS, MATRIX_GMEM_OPS = 16, 2048
+MATRIX_GMEM_DOCS, MATRIX_GMEM_OPS = 16, 2048  # S = 4,096
 MAP_SOURCE = "fluidframework_tpu_torch/csrc/map_lww.cu"
 MAP_REPLACES = "fluidframework_tpu/ops/map_kernel.py:140"
 MATRIX_REPLACES = ("fluidframework_tpu/ops/matrix_kernel.py:70 "
                    "(+ _resolve_handle :58)")
+MATRIX_SOURCE = "fluidframework_tpu_torch/csrc/matrix_fold.cu"
 #: the earlier designs of the redesigned kernels, built and timed beside
-#: them in every run (``earlier_ms``)
+#: them in every run (``earlier_ms``); K4's is the resolving build of
+#: KERNEL_SOURCE
 TREE_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/tree_fold_earlier.cu"
 MAP_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/map_lww_earlier.cu"
+RESIDENT_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/resident_earlier.cu"
 #: the entry points' rates are the median of this many calls (the driven
 #: call and the ones after it)
 ENTRY_CALLS = 3
@@ -246,7 +262,12 @@ def build_all():
                     "tree_fold_earlier"))),
             threading.Thread(target=run, args=(
                 "map_lww_earlier", lambda: _cuda_build.build(
-                    "map_lww_earlier")))]
+                    "map_lww_earlier"))),
+            threading.Thread(target=run, args=(
+                "matrix_fold", lambda: _cuda_build.build("matrix_fold"))),
+            threading.Thread(target=run, args=(
+                "resident_earlier", lambda: _cuda_build.build(
+                    "resident_earlier")))]
     for j in jobs:
         j.start()
     for j in jobs:
@@ -525,25 +546,31 @@ def state_out_bytes(D, S, T, K):
 
 def reset_counts():
     from fluidframework_tpu_torch.ops import (fold_cuda, map_lww_cuda,
+                                              matrix_fold_cuda,
                                               resident_cuda, tree_fold_cuda)
 
     fold_cuda.reset_launches()
+    matrix_fold_cuda.reset_launches()
     resident_cuda.reset_launches()
     tree_fold_cuda.reset_launches()
     map_lww_cuda.reset_launches()
 
 
 def read_counts():
-    """Launches of each build of the fold kernel, of each resident kernel,
-    of each build of the tree kernel and of the map kernel since
+    """Launches of each build of the fold kernel, of the matrix fold (and
+    of its earlier design, the fold's resolving build), of each resident
+    kernel, of each build of the tree kernel and of the map kernel since
     ``reset_counts``."""
     from fluidframework_tpu_torch.ops import (fold_cuda, map_lww_cuda,
+                                              matrix_fold_cuda,
                                               resident_cuda, tree_fold_cuda)
 
     counts = {f"{entry.__name__}_{where}": n
               for entry in (fold_cuda.fold, fold_cuda.fold_export,
                             fold_cuda.fold_resolving)
               for where, n in entry.placements.items()}
+    counts.update({f"matrix_fold_{where}": n for where, n in
+                   matrix_fold_cuda.fold_resolving.placements.items()})
     counts["map_lww"] = map_lww_cuda.lww.launches
     counts["splice_rows"] = resident_cuda.splice_rows.launches
     counts["widen_resident"] = resident_cuda.widen_resident.launches
@@ -681,22 +708,29 @@ def warm_phase(dev, docs, sample, drive, launches):
                              f"{8 * len(docs)}")
 
     # widen_resident on the resident narrow buffers, against the plain
-    # decode (new tensors: the entries are not touched)
+    # decode and the earlier design (new tensors: the entries are not
+    # touched)
+    earlier = resident_cuda.earlier_library()
     cold_dtype = str(entries[0].ops.seq.dtype)
-    widen_err = 0
+    widen_err = widen_earlier_err = 0
     for e, (_s, host_ops, meta, _t) in zip(entries, cold_packed):
         narrow = e.ops if mt.upload_encoding(e.ops) else tensors_to(
             mt.narrow_ops_for_upload(host_ops, meta), dev)
         if not mt.upload_encoding(narrow):
             raise AssertionError("the cold chunk did not narrow")
-        widen_err = max(widen_err, tree_diff(
-            mt._widen_ops(narrow, e.base),
-            resident_cuda.widen_resident(narrow, e.base)))
-    if widen_err:
-        raise AssertionError(f"widen_resident != plain: {widen_err}")
+        got = resident_cuda.widen_resident(narrow, e.base)
+        widen_err = max(widen_err, tree_diff(mt._widen_ops(narrow, e.base),
+                                             got))
+        widen_earlier_err = max(widen_earlier_err, tree_diff(
+            resident_cuda.widen_resident(narrow, e.base, lib=earlier), got))
+    if widen_err or widen_earlier_err:
+        raise AssertionError(f"widen_resident != plain ({widen_err}) or "
+                             f"its earlier design ({widen_earlier_err})")
     w_ops, w_base = entries[0].ops, entries[0].base
     w_ms, w_runs = time_call(
         lambda: resident_cuda.widen_resident(w_ops, w_base))
+    w_earlier_ms, w_earlier_runs = time_call(
+        lambda: resident_cuda.widen_resident(w_ops, w_base, lib=earlier))
     _out, w_plain_ms = timed_once(lambda: mt._widen_ops(w_ops, w_base))
     w_numel = sum(x.numel() for x in w_ops)
     w_bound = bytes_bound(nbytes(tuple(w_ops)) + nbytes(w_base)
@@ -726,7 +760,7 @@ def warm_phase(dev, docs, sample, drive, launches):
         return mt.MTOps(*(torch.where(cut if x.ndim == 2 else cut[..., None],
                                       ~x, x) for x in ops))
 
-    splice_err, splice_case = 0, None
+    splice_err, splice_earlier_err, splice_case = 0, 0, None
     for e, (_s, host_ops, _m, _t), (_s0, cold_ops, _m0, _t0) in zip(
             grown_entries, grown_packed, cold_packed):
         t_old = np.count_nonzero(np.asarray(cold_ops.kind), axis=1).astype(
@@ -741,20 +775,28 @@ def warm_phase(dev, docs, sample, drive, launches):
         unspliced = flipped_from(e.ops, start)
         kernel = mt.MTOps(*(x.clone() for x in unspliced))
         plain = mt.MTOps(*(x.clone() for x in unspliced))
+        before = mt.MTOps(*(x.clone() for x in unspliced))
         resident_cuda.splice_rows(kernel, rows, start, count)
         resident_cuda.splice_rows_reference(plain, rows, start, count)
+        resident_cuda.splice_rows(before, rows, start, count, lib=earlier)
         splice_err = max(splice_err, tree_diff(plain, kernel), tree_diff(
             flipped_from(e.ops, torch.from_numpy(t_new).to(dev)), kernel))
+        splice_earlier_err = max(splice_earlier_err,
+                                 tree_diff(before, kernel))
         if int((t_new - t_old).sum()) and not tree_diff(unspliced, kernel):
             raise AssertionError("splice_rows wrote no row of the suffix")
         if splice_case is None:
-            splice_case = (kernel, plain, rows, start, count, L,
+            splice_case = (kernel, plain, before, rows, start, count, L,
                            int((t_new - t_old).sum()))
-    if splice_err:
-        raise AssertionError(f"splice_rows != plain: {splice_err}")
-    kernel, plain, rows, start, count, L, n_rows = splice_case
+    if splice_err or splice_earlier_err:
+        raise AssertionError(f"splice_rows != plain ({splice_err}) or its "
+                             f"earlier design ({splice_earlier_err})")
+    kernel, plain, before, rows, start, count, L, n_rows = splice_case
     s_ms, s_runs = time_call(
         lambda: resident_cuda.splice_rows(kernel, rows, start, count))
+    s_earlier_ms, s_earlier_runs = time_call(
+        lambda: resident_cuda.splice_rows(before, rows, start, count,
+                                          lib=earlier))
     _out, s_plain_ms = timed_once(
         lambda: resident_cuda.splice_rows_reference(plain, rows, start,
                                                     count))
@@ -799,29 +841,37 @@ def warm_phase(dev, docs, sample, drive, launches):
           "splice_rows": {"max_abs_err": splice_err, "shape": [
               kernel.kind.shape[0], kernel.kind.shape[1], L],
               "dtype": str(kernel.seq.dtype), "rows": n_rows, "ms": s_ms,
-              "runs_ms": s_runs, "plain_ms": s_plain_ms, "bound": s_bound},
+              "runs_ms": s_runs, "plain_ms": s_plain_ms, "bound": s_bound,
+              "earlier_ms": s_earlier_ms, "earlier_runs_ms": s_earlier_runs,
+              "earlier_max_abs_err": splice_earlier_err},
           "widen_resident": {"max_abs_err": widen_err,
                              "shape": list(w_ops.kind.shape),
                              "ms": w_ms, "runs_ms": w_runs,
-                             "plain_ms": w_plain_ms, "bound": w_bound},
+                             "plain_ms": w_plain_ms, "bound": w_bound,
+                             "earlier_ms": w_earlier_ms,
+                             "earlier_runs_ms": w_earlier_runs,
+                             "earlier_max_abs_err": widen_earlier_err},
           "tiers": {k: v.stats() for k, v in on.items()}})
     for name in ("splice_rows", "widen_resident"):
         if k6[name] < 1:
             raise AssertionError(f"{name}: no launch on the grown warm run "
                                  f"({k6})")
 
-    def row(name, replaces, err, ms, plain_ms, bound):
+    def row(name, replaces, err, ms, plain_ms, bound, earlier_ms,
+            earlier_err):
         return {"name": name, "route": "cuda", "source": RESIDENT_SOURCE,
                 "replaces": replaces, "launches": k6[name],
                 "path": "warm_grown", "max_abs_err": err, "tolerance": 0,
                 "parity": err == 0, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-                "library_ms": None}
+                "library_ms": None, "earlier_ms": earlier_ms,
+                "earlier_source": RESIDENT_EARLIER_SOURCE,
+                "earlier_max_abs_err": earlier_err}
 
     return [row("splice_rows", SPLICE_REPLACES, splice_err, s_ms,
-                s_plain_ms, s_bound),
+                s_plain_ms, s_bound, s_earlier_ms, splice_earlier_err),
             row("widen_resident", WIDEN_REPLACES, widen_err, w_ms,
-                w_plain_ms, w_bound)]
+                w_plain_ms, w_bound, w_earlier_ms, widen_earlier_err)]
 
 
 def tree_fold_work(state, edits, walk_steps, counts=None):
@@ -853,16 +903,19 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
                       path_splices):
     """``splice_rows`` at the tree's shapes, on the grown pass's chunks:
     first, every resident entry must hold its grown chunk's host planes
-    (what the path's splices built); then, along each of the three axes
-    (8 edit planes ``[D, T]``, 7 node planes ``[D, N]``, 2 container
-    planes ``[D, C]``), the suffix rows past the cold chunk's counts are
-    spliced by the kernel and by the plain version into copies of the
-    grown planes whose every element from each document's old count on is
-    bit-flipped.  Both must agree, restore exactly the rows [old, new) and
-    leave the rows from new on flipped, and the cases must be as many as
-    the ``path_splices`` launches the grown pass made.  Returns, per axis,
-    the largest difference, the cases and rows checked, and one case
-    timed."""
+    (what the path's splices built); then, along the three axes (8 edit
+    planes ``[D, T]``, 7 node planes ``[D, N]``, 2 container planes
+    ``[D, C]``), the suffix rows past the cold chunk's counts are spliced
+    into copies of the grown planes whose every element from each
+    document's old count on is bit-flipped: by the kernel with every axis
+    in one launch as the path does it (``splice_row_groups``), by the
+    kernel an axis a launch, by the earlier design an axis a launch, and
+    by the plain version.  All must agree, restore exactly the rows [old,
+    new) and leave the rows from new on flipped, and the chunks spliced
+    must be as many as the ``path_splices`` launches the grown pass made
+    (one a chunk).  Returns, per axis, the largest difference, the cases
+    and rows checked, and one case timed (kernel and earlier design), and
+    the one-launch splice of a chunk's three axes timed."""
     import numpy as np
     import torch
 
@@ -880,12 +933,16 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
             >= first[:, None]
         return type(planes)(*(torch.where(cut, ~x, x) for x in planes))
 
+    def copy(planes):
+        return type(planes)(*(x.clone() for x in planes))
+
+    earlier = resident_cuda.earlier_library()
     cold_by = {tokens(m): (o, m) for _s, o, m, _t in cold_packed}
     axes = (("edits", tk.TreeEdits), ("nodes", tp._TreeNodePlanes),
             ("containers", tp._TreeContPlanes))
-    out = {axis: {"max_abs_err": 0, "cases": 0, "rows": 0}
-           for axis, _g in axes}
-    mirror_err, timed = 0, {}
+    out = {axis: {"max_abs_err": 0, "earlier_max_abs_err": 0, "cases": 0,
+                  "rows": 0} for axis, _g in axes}
+    mirror_err, timed, chunks, grouped = 0, {}, 0, None
     for host_st, host_ed, meta, _t in grown_packed:
         if tokens(meta) not in cold_by:
             raise AssertionError("a grown tree chunk has no cold twin")
@@ -898,6 +955,7 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
                    tp.TreeDeviceOps.t_rows(host_ed)),
                   (cold_meta["n_nodes"], meta["n_nodes"]),
                   (cold_meta["n_cont"], meta["n_cont"]))
+        cases = []
         for (axis, group), host, (old, new) in zip(
                 axes, (host_ed, host_st, host_st), counts):
             old = np.asarray(old, np.int32)
@@ -911,47 +969,71 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
             count = torch.from_numpy(new - old).to(dev)
             full = group(*(torch.from_numpy(np.ascontiguousarray(
                 getattr(host, f))).to(dev) for f in group._fields))
-            unspliced = flipped_from(full, start)
-            kernel = group(*(x.clone() for x in unspliced))
-            plain = group(*(x.clone() for x in unspliced))
+            cases.append((axis, full, rows, start, count, L,
+                          int((new - old).sum())))
+        if not cases:
+            continue
+        chunks += 1
+        unspliced = {c[0]: flipped_from(c[1], c[3]) for c in cases}
+        together = {axis: copy(x) for axis, x in unspliced.items()}
+        resident_cuda.splice_row_groups(
+            [(together[axis], rows, start, count)
+             for axis, _f, rows, start, count, _L, _n in cases])
+        if grouped is None:
+            grouped = ([(copy(together[axis]), rows, start, count)
+                        for axis, _f, rows, start, count, _L, _n in cases],
+                       [axis for axis, *_rest in cases])
+        for axis, full, rows, start, count, L, n_rows in cases:
+            kernel, plain, before = (copy(unspliced[axis]) for _ in range(3))
             resident_cuda.splice_rows(kernel, rows, start, count)
             resident_cuda.splice_rows_reference(plain, rows, start, count)
-            n_rows = int((new - old).sum())
-            if not tree_diff(unspliced, kernel):
+            resident_cuda.splice_rows(before, rows, start, count,
+                                      lib=earlier)
+            if not tree_diff(unspliced[axis], kernel):
                 raise AssertionError(f"splice_rows wrote no {axis} row of "
                                      f"the suffix")
             rec = out[axis]
-            restored = flipped_from(full, torch.from_numpy(new).to(dev))
+            restored = flipped_from(full, start + count)
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      tree_diff(plain, kernel),
+                                     tree_diff(plain, together[axis]),
                                      tree_diff(restored, kernel))
+            rec["earlier_max_abs_err"] = max(rec["earlier_max_abs_err"],
+                                             tree_diff(before, kernel))
             rec["cases"] += 1
             rec["rows"] += n_rows
             rec.setdefault("shape", [*full[0].shape, L])
-            timed.setdefault(axis, (kernel, plain, rows, start, count,
-                                    n_rows))
+            timed.setdefault(axis, (kernel, plain, before, rows, start,
+                                    count, n_rows))
     if mirror_err:
         raise AssertionError(f"resident tree entries differ from the grown "
                              f"chunks' host planes: {mirror_err}")
-    cases = sum(rec["cases"] for rec in out.values())
-    if cases != path_splices:
-        raise AssertionError(f"{cases} tree splices checked, but the grown "
-                             f"pass launched {path_splices}")
+    if chunks != path_splices:
+        raise AssertionError(f"{chunks} tree chunks spliced, but the grown "
+                             f"pass launched {path_splices} splices")
     for axis, rec in out.items():
         if not rec["cases"]:
             raise AssertionError(f"no grown tree chunk spliced {axis} rows")
-        if rec["max_abs_err"]:
-            raise AssertionError(f"splice_rows != plain along the tree's "
-                                 f"{axis} axis: {rec['max_abs_err']}")
-        kernel, plain, rows, start, count, n_rows = timed[axis]
+        if rec["max_abs_err"] or rec["earlier_max_abs_err"]:
+            raise AssertionError(f"splice_rows != plain or its earlier "
+                                 f"design along the tree's {axis} axis: "
+                                 f"{rec}")
+        kernel, plain, before, rows, start, count, n_rows = timed[axis]
         rec["ms"], rec["runs_ms"] = time_call(
             lambda: resident_cuda.splice_rows(kernel, rows, start, count))
+        rec["earlier_ms"], rec["earlier_runs_ms"] = time_call(
+            lambda: resident_cuda.splice_rows(before, rows, start, count,
+                                              lib=earlier))
         _x, rec["plain_ms"] = timed_once(
             lambda: resident_cuda.splice_rows_reference(plain, rows, start,
                                                         count))
         rec["bound"] = bytes_bound(
             2 * n_rows * 4 * len(kernel) + nbytes((start, count)),
             n_rows * len(kernel))
+    groups, names = grouped
+    ms, runs = time_call(lambda: resident_cuda.splice_row_groups(groups))
+    out["one_launch"] = {"axes": names, "ms": ms, "runs_ms": runs,
+                         "chunks": chunks}
     return out
 
 
@@ -1342,21 +1424,26 @@ def matrix_phase(dev, drive, launches, card):
     """Phase 10: SharedMatrix catch-up at full width (BASELINE.json config
     #4, the reference's ``gen_matrix_doc`` workload):
     ``replay_matrix_batch`` over 10,240 documents x 64 ops (20,480 axis
-    streams) on the card, with one launch of the resolving build (K4) in
-    shared memory and every summary byte-identical to the port's
-    ``SharedMatrix`` oracle; the same batch staged by hand and the entry's
-    rate (median of 3 calls); the committed fixture through the entry
-    (summaries against the oracle, routing counts equal to the JAX
-    package's); the resolving build against the plain
-    ``replay_scan_resolving`` on the card (every plane, ``n``,
-    ``overflow`` and every resolved handle) on the main batch, the fixture
-    and the crafted resolve cases, and on 16 documents of 2,048 ops
-    (S = 4,096), which take the device-memory build through the entry; both
-    builds timed.  Returns their rows of the ``kernels`` line."""
+    streams, a cold batch) on the card, with one launch of the resolving
+    fold (K4, ``csrc/matrix_fold.cu``) in shared memory and every summary
+    byte-identical to the port's ``SharedMatrix`` oracle; its transfer
+    bytes beside what the earlier entry moved (every plane up and down);
+    the same batch staged by hand and the entry's rate (median of 3
+    calls); the committed fixture through the entry (summaries against
+    the oracle, routing counts equal to the JAX package's); K4 against the
+    plain ``replay_scan_resolving`` and against its earlier design (the
+    resolving build of ``csrc/mergetree_fold.cu``) on the card, every
+    plane, ``n``, ``overflow`` and resolved handle, cold (no state read)
+    and warm, on the main batch, the fixture, the crafted resolve cases
+    and 16 documents of 2,048 ops (S = 4,096, which the entry folds in
+    shared memory too); a violated fact counted and raised; K4 and its
+    earlier design timed on both batches.  Returns K4's rows of the
+    ``kernels`` line."""
     import torch
 
     from fluidframework_tpu_torch.convert import tensors_to
     from fluidframework_tpu_torch.ops import fold_cuda
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
     from fluidframework_tpu_torch.ops import matrix_kernel as mk
     from fluidframework_tpu_torch.testing import config_workloads as cw
 
@@ -1364,9 +1451,9 @@ def matrix_phase(dev, drive, launches, card):
     docs = [cw.gen_matrix_doc(i, MATRIX_OPS) for i in range(MATRIX_DOCS)]
     gen_s = time.perf_counter() - t
     n_ops = sum(len(d.ops) for d in docs)
-    stats = {}
+    stats, transfer = {}, {}
     got, e2e_s = drive("matrix", lambda: mk.replay_matrix_batch(
-        docs, stats=stats, device=dev))
+        docs, stats=stats, device=dev, stage=transfer))
     t = time.perf_counter()
     bad = [d.doc_id for d, g in zip(docs, got)
            if g.digest() != mk.oracle_matrix_fallback(d).digest()]
@@ -1378,142 +1465,210 @@ def matrix_phase(dev, drive, launches, card):
     t = time.perf_counter()
     st_np, ops_np, meta = mk.pack_matrix_batch(docs)
     stages["pack"] = time.perf_counter() - t
+    D2, S = st_np.tstart.shape
+    T = ops_np.kind.shape[1]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    state, ops = tensors_to(st_np, dev), tensors_to(ops_np, dev)
+    state_d, ops_d, h2d = mk.upload_matrix_batch(st_np, ops_np, meta, dev)
     torch.cuda.synchronize()
     stages["upload"] = time.perf_counter() - t
     t = time.perf_counter()
-    final, resolved = fold_cuda.fold_resolving(state, ops)
+    final, resolved, viol = mf.fold_resolving(state_d, ops_d,
+                                              cold=meta["cold"], S=S)
     torch.cuda.synchronize()
     stages["kernel"] = time.perf_counter() - t
     t = time.perf_counter()
-    state_h = {k: v.cpu().numpy() for k, v in final._asdict().items()}
-    resolved_h = resolved.cpu().numpy()
+    state_h, resolved_h, d2h = mk.download_matrix_fold(final, resolved,
+                                                       viol)
     stages["download"] = time.perf_counter() - t
     t = time.perf_counter()
     staged = [mk.summary_from_matrix_state(meta, state_h, resolved_h, d)
               for d in range(len(docs))]
     stages["summaries"] = time.perf_counter() - t
     staged_same = [x.digest() for x in staged] == [x.digest() for x in got]
-    D2, S = st_np.tstart.shape
-    T = ops_np.kind.shape[1]
+    # what the earlier entry moved: the whole state up, every plane down
+    earlier_transfer = {
+        "h2d_bytes": nbytes(tuple(st_np)) + nbytes(tuple(ops_np)),
+        "d2h_bytes": nbytes(tuple(final)) + nbytes(resolved)}
 
-    parity = {"smem": {}, "gmem": {}}
+    parity, plain_ms, inputs = {}, {}, {}
 
-    def check(label, st, op):
-        where = fold_cuda.placement(st.tstart.shape[1], 1)
-        got_f, got_r = fold_cuda.fold_resolving(st, op)
-        (want_f, want_r), plain = timed_once(
+    def check(label, packed):
+        """K4 cold (when the batch is) and warm against the plain fold and
+        the earlier design on the same inputs."""
+        s_np, o_np, m = packed
+        st, op = tensors_to(s_np, dev), tensors_to(o_np, dev)
+        (want_f, want_r), plain_ms[label] = timed_once(
             lambda: mk.replay_scan_resolving(st, op))
-        err_f, first = state_diff(want_f, got_f)
-        err = max(err_f, leaves_diff(want_r, got_r))
-        if err:
-            print(f"resolving fold vs plain ({label}): first state mismatch "
-                  f"{first}", file=sys.stderr)
-        parity[where][label] = err
-        return plain
+        old_f, old_r = fold_cuda.fold_resolving(st, op)
+        for warmth in ("cold", "warm") if m["cold"] else ("warm",):
+            cold = warmth == "cold"
+            got_f, got_r, counted = mf.fold_resolving(
+                None if cold else st, op, cold=cold, S=st.tstart.shape[1])
+            torch.cuda.synchronize()
+            mf.check_facts(counted)
+            err_f, first = state_diff(want_f, got_f)
+            parity[f"{label}_{warmth}"] = {
+                "plain": max(err_f, leaves_diff(want_r, got_r)),
+                "earlier": max(state_diff(old_f, got_f)[0],
+                               leaves_diff(old_r, got_r))}
+            if err_f:
+                print(f"K4 vs plain ({label}, {warmth}): first state "
+                      f"mismatch {first}", file=sys.stderr)
+        inputs[label] = (st, op)
 
-    plain_ms = check("main", state, ops)
+    check("main", (st_np, ops_np, meta))
     fixture = cw.hard_matrix_docs()
-    fx_np = mk.pack_matrix_batch([d for d in fixture
-                                  if not mk.known_matrix_fallback(d)])
-    check("fixture", tensors_to(fx_np[0], dev), tensors_to(fx_np[1], dev))
-    cr_np = mk.pack_matrix_batch([cw.crafted_matrix_doc(c)
-                                  for c in cw.CRAFTED_MATRIX])
-    check("crafted", tensors_to(cr_np[0], dev), tensors_to(cr_np[1], dev))
+    check("fixture", mk.pack_matrix_batch(
+        [d for d in fixture if not mk.known_matrix_fallback(d)]))
+    check("crafted", mk.pack_matrix_batch(
+        [cw.crafted_matrix_doc(c) for c in cw.CRAFTED_MATRIX]))
     fx_stats = {}
     fx_got = mk.replay_matrix_batch(fixture, stats=fx_stats, device=dev)
     fx_bad = [d.doc_id for d, g in zip(fixture, fx_got)
               if g.digest() != mk.oracle_matrix_fallback(d).digest()]
 
+    # a violated fact is counted and raised, never answered
+    f_st, f_op = inputs["fixture"]
+    live = int(torch.nonzero(f_st.n)[0, 0])
+    facts = {}
+    for fact, (st, op) in {
+            "obliterate_row": (f_st, f_op._replace(kind=torch.where(
+                f_op.kind == mk.K_REMOVE, 4, f_op.kind))),
+            "props_write": (f_st, f_op._replace(
+                pvals=torch.zeros_like(f_op.pvals))),
+            "ob_stamp": (f_st._replace(ob1_seq=f_st.ob1_seq.index_put(
+                (torch.tensor([live], device=dev),
+                 torch.tensor([0], device=dev)),
+                torch.tensor(7, dtype=torch.int32, device=dev))), f_op),
+    }.items():
+        try:  # on the card the kernel counts it and check_facts raises
+            mf.check_facts(mf.fold_resolving(st, op)[2])
+            facts[fact] = False
+        except ValueError:
+            facts[fact] = True
+
     t = time.perf_counter()
     g_docs = [cw.gen_matrix_doc(i, MATRIX_GMEM_OPS)
               for i in range(MATRIX_GMEM_DOCS)]
-    g_np, g_ops_np, _g_meta = mk.pack_matrix_batch(g_docs)
+    g_packed = mk.pack_matrix_batch(g_docs)
     g_pack_s = time.perf_counter() - t
-    gD2, gS = g_np.tstart.shape
-    gT = g_ops_np.kind.shape[1]
-    g_where = fold_cuda.placement(gS, 1)
-    g_stats = {}
-    g_got, g_e2e_s = drive("matrix_gmem", lambda: mk.replay_matrix_batch(
-        g_docs, stats=g_stats, device=dev))
-    g_state, g_ops = tensors_to(g_np, dev), tensors_to(g_ops_np, dev)
-    g_plain_ms = check("large_s", g_state, g_ops)
+    gD2, gS = g_packed[0].tstart.shape
+    gT = g_packed[1].kind.shape[1]
+    g_stats, g_transfer = {}, {}
+    g_got, g_e2e_s = drive("matrix_large", lambda: mk.replay_matrix_batch(
+        g_docs, stats=g_stats, device=dev, stage=g_transfer))
+    check("large_s", g_packed)
     t = time.perf_counter()
     g_bad = [d.doc_id for d, g in zip(g_docs[:2], g_got)
              if g.digest() != mk.oracle_matrix_fallback(d).digest()]
     g_oracle_s = time.perf_counter() - t
 
     times = {}
-    for where, st, op, shape, plain in (
-            ("smem", state, ops, (D2, S, T), plain_ms),
-            ("gmem", g_state, g_ops, (gD2, gS, gT), g_plain_ms)):
-        fn = lambda st=st, op=op: fold_cuda.fold_resolving(st, op)  # noqa
-        k_ms, k_runs = time_call(fn)
-        k_call_ms, _ = time_call(fn, spin=False)
+    for label, shape in (("main", (D2, S, T)), ("large_s", (gD2, gS, gT))):
+        st, op = inputs[label]
         d2, s_, t_ = shape
+        cold_fn = lambda st=st, op=op, s_=s_: mf.fold_resolving(  # noqa
+            None, op, cold=True, S=s_)
+        warm_fn = lambda st=st, op=op: mf.fold_resolving(st, op)  # noqa
+        old_fn = lambda st=st, op=op: fold_cuda.fold_resolving(st, op)  # noqa
+        k_ms, k_runs = time_call(cold_fn)
+        w_ms, w_runs = time_call(warm_fn)
+        e_ms, e_runs = time_call(old_fn)
+        k_call_ms, _ = time_call(cold_fn, spin=False)
+        # the row's bound formula (state in and out, as for every build)
+        # and the work this design must do cold (ops read, 9 planes and
+        # the handles written, no state read)
         bound = bound_ms(st, op, state_out_bytes(d2, s_, t_, 1) + d2 * t_ * 4)
-        times[where] = {"shape": [d2, s_, t_, 1], "ms": k_ms,
-                        "runs_ms": k_runs, "call_ms": k_call_ms,
-                        "plain_ms": plain, "bound": bound,
+        design = bound_ms(st, op, d2 * t_ * 9 * 4 + d2 * s_ * 9 * 4
+                          + d2 * (4 + 1 + 4) + d2 * t_ * 4)
+        times[label] = {"shape": [d2, s_, t_, 1], "ms": k_ms,
+                        "runs_ms": k_runs, "warm_ms": w_ms,
+                        "warm_runs_ms": w_runs, "earlier_ms": e_ms,
+                        "earlier_runs_ms": e_runs, "call_ms": k_call_ms,
+                        "plain_ms": plain_ms[label], "bound": bound,
+                        "design_bound": design,
+                        "launch_shape": mf.occupancy(s_),
+                        "earlier_occupancy": fold_cuda.occupancy(
+                            s_, 1, kernel="fold_resolving"),
                         "resolve_rows": int((op.kind == mk.K_RESOLVE).sum())}
-    k4 = {"smem": launches["matrix"]["fold_resolving_smem"],
-          "gmem": launches["matrix_gmem"]["fold_resolving_gmem"]}
+    k4 = {"main": launches["matrix"]["matrix_fold_smem"],
+          "large_s": launches["matrix_large"]["matrix_fold_smem"]}
     emit({"phase": "matrix", "docs": MATRIX_DOCS, "ops": n_ops,
-          "shape": [D2, S, T, 1], "launches": launches["matrix"],
-          "stats": stats, "oracle_docs": len(docs),
-          "oracle_mismatches": bad[:8], "gen_s": gen_s, "oracle_s": oracle_s,
-          "e2e_s": e2e_s, "walls_s": walls,
-          "ops_per_s": n_ops / statistics.median(walls), "stages_s": stages,
-          "staged_equals_entry": staged_same,
+          "shape": [D2, S, T, 1], "cold": meta["cold"],
+          "launches": launches["matrix"], "stats": stats,
+          "oracle_docs": len(docs), "oracle_mismatches": bad[:8],
+          "gen_s": gen_s, "oracle_s": oracle_s, "e2e_s": e2e_s,
+          "walls_s": walls, "ops_per_s": n_ops / statistics.median(walls),
+          "stages_s": stages, "staged_equals_entry": staged_same,
+          "transfer": transfer, "staged_transfer": {"h2d_bytes": h2d,
+                                                    "d2h_bytes": d2h},
+          "earlier_transfer": earlier_transfer,
           "fixture": {"docs": len(fixture), "stats": fx_stats,
                       "reference_stats": MATRIX_FIXTURE_STATS,
                       "oracle_mismatches": fx_bad},
           "large_s": {"docs": MATRIX_GMEM_DOCS, "ops": MATRIX_GMEM_OPS,
-                      "shape": [gD2, gS, gT, 1], "placement": g_where,
-                      "pack_s": g_pack_s, "e2e_s": g_e2e_s,
-                      "stats": g_stats, "launches": launches["matrix_gmem"],
+                      "shape": [gD2, gS, gT, 1],
+                      "placement": mf.placement(gS), "pack_s": g_pack_s,
+                      "e2e_s": g_e2e_s, "stats": g_stats,
+                      "transfer": g_transfer,
+                      "launches": launches["matrix_large"],
                       "oracle_docs": 2, "oracle_mismatches": g_bad,
                       "oracle_s": g_oracle_s},
-          "max_abs_err_by_batch": parity, "times": times})
-    if k4["smem"] != 1 or sum(launches["matrix"].values()) != 1:
-        raise AssertionError(f"replay_matrix_batch did not launch the "
-                             f"resolving build once in shared memory: "
-                             f"{launches['matrix']}")
-    if g_where != "gmem" or k4["gmem"] != 1:
-        raise AssertionError(f"the S={gS} matrix batch did not fold once in "
-                             f"device memory ({g_where}): "
-                             f"{launches['matrix_gmem']}")
+          "facts_raise": facts, "max_abs_err_by_batch": parity,
+          "times": times})
+    for label, path in (("main", "matrix"), ("large_s", "matrix_large")):
+        if k4[label] != 1 or sum(launches[path].values()) != 1:
+            raise AssertionError(f"replay_matrix_batch ({label}) did not "
+                                 f"launch K4 once in shared memory: "
+                                 f"{launches[path]}")
     if stats != {"device_docs": MATRIX_DOCS}:
         raise AssertionError(f"matrix stats {stats}")
     if bad or fx_bad or g_bad:
         raise AssertionError(f"matrix summaries differ from the oracle: "
                              f"{(bad + fx_bad + g_bad)[:8]}")
-    if not staged_same:
-        raise AssertionError("the staged matrix batch differs from the entry")
+    if not staged_same or transfer != {"h2d_bytes": h2d, "d2h_bytes": d2h}:
+        raise AssertionError(f"the staged matrix batch differs from the "
+                             f"entry ({staged_same}, {transfer} vs "
+                             f"{h2d} / {d2h})")
     if fx_stats != MATRIX_FIXTURE_STATS:
         raise AssertionError(f"fixture routing {fx_stats}, the JAX "
                              f"package's {MATRIX_FIXTURE_STATS}")
-    err = max(v for by in parity.values() for v in by.values())
+    if not all(facts.values()):
+        raise AssertionError(f"a violated matrix fact did not raise: {facts}")
+    err = max(max(v.values()) for v in parity.values())
     if err:
-        raise AssertionError(f"resolving fold != plain: {parity}")
+        raise AssertionError(f"K4 != plain / earlier design: {parity}")
     rows = []
-    for where, path in (("smem", "matrix"), ("gmem", "matrix_gmem")):
-        rec, e = times[where], max(parity[where].values())
+    for label, path in (("main", "matrix"), ("large_s", "matrix_large")):
+        rec = times[label]
+        by = {k: v for k, v in parity.items()
+              if (label == "large_s") == k.startswith("large_s")}
+        e = max(v["plain"] for v in by.values())
         rows.append({
-            "name": f"matrix_fold_resolve_{where}", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": MATRIX_REPLACES,
-            "placement": where, "launches": k4[where], "path": path,
-            "timed_shape": rec["shape"], "max_abs_err": e, "tolerance": 0,
-            "parity": e == 0, "max_abs_err_by_batch": parity[where],
+            "name": "matrix_fold" if label == "main"
+            else "matrix_fold_large_s", "route": "cuda",
+            "source": MATRIX_SOURCE, "replaces": MATRIX_REPLACES,
+            "placement": rec["launch_shape"]["placement"],
+            "launch_shape": rec["launch_shape"], "launches": k4[label],
+            "path": path, "timed_shape": rec["shape"], "max_abs_err": e,
+            "tolerance": 0, "parity": e == 0, "max_abs_err_by_batch": by,
             "ms": rec["ms"], "runs_ms": rec["runs_ms"],
-            "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
+            "warm_ms": rec["warm_ms"], "call_ms": rec["call_ms"],
+            "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound"]["bound_ms"],
             "bound_by": rec["bound"]["bound_by"], "bound": rec["bound"],
+            "design_bound_ms": rec["design_bound"]["bound_ms"],
+            "design_bound": rec["design_bound"],
             "resolve_rows": rec["resolve_rows"], "library_ms": None,
             "library": "none: no one PyTorch call computes the axis fold "
-                       "with resolution", "card": card})
+                       "with resolution",
+            "earlier_ms": rec["earlier_ms"],
+            "earlier_runs_ms": rec["earlier_runs_ms"],
+            "earlier_source": KERNEL_SOURCE + " (resolving builds)",
+            "earlier_occupancy": rec["earlier_occupancy"],
+            "earlier_max_abs_err": max(v["earlier"] for v in by.values()),
+            "card": card})
     return rows
 
 
@@ -1564,14 +1719,19 @@ def main() -> int:
            for S in (PINNED_S, TAIL_S, LARGE_S)
            for k in ("fold", "fold_export", "fold_resolving")]
     ptxas = {}
-    for source in ("mergetree_fold", "resident", "tree_fold", "map_lww"):
+    for source in ("mergetree_fold", "resident", "tree_fold", "map_lww",
+                   "matrix_fold", "resident_earlier"):
         with open(_cuda_build.library_path(source) + ".log") as f:
             ptxas[source] = [ln.strip() for ln in f if "registers" in ln
                              or "spill" in ln or "smem" in ln]
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda
+
     emit({"phase": "build", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "seconds": {k: v[1] for k, v in built.items()},
-          "ptxas": ptxas, "occupancy": occ})
+          "ptxas": ptxas, "occupancy": occ,
+          "matrix_fold_occupancy": [matrix_fold_cuda.occupancy(S)
+                                    for S in (128, LARGE_S, 2 * LARGE_S)]})
 
     # -- 1. kernel vs plain on the hard-semantics fixture -----------------
     fixture = workload.hard_docs()

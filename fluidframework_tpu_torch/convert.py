@@ -124,7 +124,7 @@ def matrix_doc_input_from(obj) -> MatrixDocInput:
     )
 
 
-def map_batch_from(packed, device="cpu") -> LWWInputs:
+def map_batch_from(packed, device) -> LWWInputs:
     """The seven int32 arrays of a packed map batch (the JAX package's
     ``pack_map_batch`` output included) as the port's ``LWWInputs`` of
     tensors on ``device``."""

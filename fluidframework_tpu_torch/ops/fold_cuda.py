@@ -4,7 +4,10 @@
 ``fold_export(state, ops, doc_base, layout, digest)`` does the same and
 writes the transfer buffer (and the state digest) instead of the state,
 and ``fold_resolving(state, ops)`` is the SharedMatrix axis fold: the
-state out plus each ``K_RESOLVE`` row's handle:
+state out plus each ``K_RESOLVE`` row's handle.  That resolving build is
+the earlier design of K4, kept as the yardstick ``chip_smoke.py`` and
+``tools/torch_kernel_turns.py`` time; no entry point launches it
+(``replay_matrix_batch`` takes ``ops/matrix_fold_cuda.py``):
 
 - on CPU tensors they are the plain versions,
   ``mergetree_kernel.fold_reference``, ``export_reference`` and

@@ -23,10 +23,13 @@ The device half:
 
 - ``replay_scan_resolving`` — the plain PyTorch fold with resolution, on
   the port's ``_visible_len`` / ``_excl_cumsum`` / ``_apply_op``: for each
-  row, resolve on the carry, then apply the row;
-- ``ops.fold_cuda.fold_resolving`` — the hand-written kernel's resolving
-  build (CUDA tensors) or the plain version (CPU tensors);
-- ``replay_matrix_batch`` — the entry point.
+  row, resolve on the carry, then apply the row (``cold=True``: from the
+  pack's fill state, ``matrix_fill_state``);
+- ``ops.matrix_fold_cuda.fold_resolving`` — the hand-written kernel
+  (CUDA tensors) or the plain version (CPU tensors);
+- ``replay_matrix_batch`` — the entry point: a cold batch (no base
+  summary; ``meta["cold"]``) uploads no state, and only the planes the
+  summaries read come back, up to the batch's largest ``n``.
 
 Summary extraction renumbers handles canonically, exactly like the
 oracle, so the bytes match ``SharedMatrix.summarize()``.
@@ -83,11 +86,44 @@ def resolve_handle(st, n, slot, op) -> torch.Tensor:
     return torch.where((idx < S) & (op["kind"] == K_RESOLVE), handle, -1)
 
 
-def replay_scan_resolving(state: MTState, ops: MTOps):
+#: the value ``pack_matrix_batch`` fills each slot plane with (props: 0)
+MATRIX_PLANE_FILL = {
+    "tstart": 0, "tlen": 0, "ins_seq": 0, "ins_client": -1,
+    "rem_seq": int(NOT_REMOVED), "rem_client": -1,
+    "rem2_seq": int(NOT_REMOVED), "rem2_client": -1,
+    "ob1_seq": int(NOT_REMOVED), "ob1_client": -1,
+    "ob2_seq": int(NOT_REMOVED), "ob2_client": -1,
+}
+#: the obliterate planes' fill: no matrix op stamps them
+MATRIX_OB_FILL = {f: v for f, v in MATRIX_PLANE_FILL.items()
+                  if f.startswith("ob")}
+
+
+def matrix_fill_state(D: int, S: int, device) -> MTState:
+    """The state ``pack_matrix_batch`` packs for ``D`` streams of ``S``
+    slots when no document has a base summary: every plane its fill,
+    ``props`` 0, ``n`` 0, no overflow."""
+    planes = {f: torch.full((D, S), v, dtype=torch.int32, device=device)
+              for f, v in MATRIX_PLANE_FILL.items()}
+    return MTState(**planes,
+                   props=torch.zeros((D, S, 1), dtype=torch.int32,
+                                     device=device),
+                   n=torch.zeros((D,), dtype=torch.int32, device=device),
+                   overflow=torch.zeros((D,), dtype=torch.bool,
+                                        device=device))
+
+
+def replay_scan_resolving(state: MTState, ops: MTOps, cold: bool = False,
+                          S: Optional[int] = None):
     """The plain axis fold that also emits each row's resolved handle:
     ``(final MTState, resolved [D, T] int32)``, on whatever device the
     tensors lie.  Counterpart of the reference's ``replay_scan_resolving``
-    under ``vmap`` (``_replay_matrix_batch``)."""
+    under ``vmap`` (``_replay_matrix_batch``).  ``cold``: fold from
+    ``matrix_fill_state`` of ``S`` slots (``state``'s when ``S`` is None;
+    its values unread)."""
+    if cold:
+        S = state.tstart.shape[1] if S is None else S
+        state = matrix_fill_state(ops.kind.shape[0], S, ops.kind.device)
     st = _stack_state(state)
     D, _P, S = st.shape
     n = state.n.to(torch.int32).reshape(D, 1)
@@ -310,7 +346,10 @@ def pack_matrix_batch(docs: Sequence[MatrixDocInput]):
             else:
                 raise ValueError(f"unknown matrix op kind {kind!r}")
 
-    meta = {"packs": packs, "values": values, "docs": docs}
+    # cold: no document has a base summary, so every plane is its fill
+    # and n = 0 (the device fold then reads no state)
+    meta = {"packs": packs, "values": values, "docs": docs,
+            "cold": all(doc.base_summary is None for doc in docs)}
     return MTState(**{k: v for k, v in st.items()}), MTOps(**op), meta
 
 
@@ -449,27 +488,74 @@ def summary_from_matrix_state(meta, state_np, resolved_np, d: int,
     return tree
 
 
+#: the slot planes summary extraction reads (with ``n`` and ``overflow``)
+SUMMARY_FIELDS = ("tstart", "tlen", "ins_seq", "ins_client", "rem_seq",
+                  "rem_client", "rem2_client")
+
+
+def upload_matrix_batch(state: MTState, ops: MTOps, meta: dict, device):
+    """A packed batch on ``device`` for the fold: ``(state, ops, h2d
+    bytes)``, ``state`` None for a cold batch (the fold builds the fill
+    itself)."""
+    from ..convert import tensors_to
+
+    ops_d = tensors_to(ops, device)
+    moved = sum(x.numel() * x.element_size() for x in ops_d)
+    if meta["cold"]:
+        return None, ops_d, moved
+    state_d = tensors_to(state, device)
+    return state_d, ops_d, moved + sum(x.numel() * x.element_size()
+                                       for x in state_d)
+
+
+def download_matrix_fold(final: MTState, resolved, violations):
+    """What summary extraction reads of a fold, on the host: ``(state
+    arrays, resolved, d2h bytes)`` with ``n``, ``overflow`` and the
+    ``SUMMARY_FIELDS`` planes up to the batch's largest ``n`` (the slots
+    past it are never read).  Raises ``ValueError`` when the fold counted
+    a violated fact."""
+    from .matrix_fold_cuda import check_facts
+
+    viol = violations.cpu().numpy()
+    check_facts(viol)
+    n = final.n.cpu().numpy()
+    state_np = {"n": n, "overflow": final.overflow.cpu().numpy()}
+    width = min(int(n.max(initial=0)), final.tstart.shape[1])
+    for f in SUMMARY_FIELDS:
+        state_np[f] = getattr(final, f)[:, :width].cpu().numpy()
+    resolved_np = resolved.cpu().numpy()
+    moved = sum(x.nbytes for x in state_np.values()) + resolved_np.nbytes \
+        + viol.nbytes
+    return state_np, resolved_np, moved
+
+
 def replay_matrix_batch(docs: Sequence[MatrixDocInput],
                         stats: Optional[dict] = None,
-                        device="cuda") -> List[SummaryTree]:
+                        device="cuda",
+                        stage: Optional[dict] = None) -> List[SummaryTree]:
     """Full pipeline: pack → dual-axis fold with resolution on ``device``
     → host cell fold → canonical summaries.  Byte-identical to
     ``SharedMatrix.summarize()``.  ``stats`` accumulates ``device_docs`` /
-    ``fallback_docs`` (pre-pack routing + per-axis overflow fallbacks).
-    On a CUDA device the fold is the hand-written kernel's resolving build
-    (``fold_cuda.fold_resolving``); on ``"cpu"`` its plain version."""
-    from ..convert import tensors_to
+    ``fallback_docs`` (pre-pack routing + per-axis overflow fallbacks);
+    ``stage`` accumulates the fold's ``h2d_bytes`` / ``d2h_bytes``.  On a
+    CUDA device the fold is the hand-written kernel
+    (``matrix_fold_cuda.fold_resolving``); on ``"cpu"`` its plain
+    version."""
     from .batching import partition_replay
-    from .fold_cuda import fold_resolving
+    from .matrix_fold_cuda import fold_resolving
 
     dev = resolve_device(device)
 
     def fold_batch(batch):
         state, ops, meta = pack_matrix_batch(batch)
-        final, resolved = fold_resolving(tensors_to(state, dev),
-                                         tensors_to(ops, dev))
-        state_np = {k: v.cpu().numpy() for k, v in final._asdict().items()}
-        resolved_np = resolved.cpu().numpy()
+        state_d, ops_d, h2d = upload_matrix_batch(state, ops, meta, dev)
+        final, resolved, violations = fold_resolving(
+            state_d, ops_d, cold=meta["cold"], S=state.tstart.shape[1])
+        state_np, resolved_np, d2h = download_matrix_fold(final, resolved,
+                                                          violations)
+        if stage is not None:
+            stage["h2d_bytes"] = stage.get("h2d_bytes", 0) + h2d
+            stage["d2h_bytes"] = stage.get("d2h_bytes", 0) + d2h
         return [
             summary_from_matrix_state(meta, state_np, resolved_np, d,
                                       stats=stats)

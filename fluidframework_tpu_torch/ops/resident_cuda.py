@@ -3,7 +3,8 @@ wrappers.
 
 ``splice_rows(resident, rows, start, count)`` writes each document's new
 op rows into a namedtuple of resident planes IN PLACE,
-``out[d, start[d] + j] = rows[d, j]`` for ``j < count[d]``;
+``out[d, start[d] + j] = rows[d, j]`` for ``j < count[d]``
+(``splice_row_groups`` does several such tuples in one launch);
 ``widen_resident(tree, doc_base)`` migrates a resident ``MTOps`` or
 ``MTState`` from the int16/int8 upload encoding to new int32 planes:
 
@@ -21,7 +22,11 @@ The kernels replace the reference's XLA-traced device code K6,
 stays in ``mergetree_kernel.upload_encoding``: ``widen_resident`` asks it
 first, raises on an encoding it refuses, and returns a wide tree as it
 is.  ``splice_rows.launches`` / ``widen_resident.launches`` count the
-launches (and nothing else); ``reset_launches()`` zeroes them.
+launches (and nothing else); ``reset_launches()`` zeroes them.  The
+earlier design of the kernels, ``csrc/resident_earlier.cu`` (same C
+entries but the grouped splice; ``earlier_library()``), is the yardstick
+``chip_smoke.py`` and ``tools/torch_kernel_turns.py`` time; no entry point
+launches it.
 """
 
 from __future__ import annotations
@@ -40,8 +45,10 @@ from .mergetree_kernel import (
     upload_encoding,
 )
 
-#: planes one launch takes (the kernel's descriptor table)
-MAX_PLANES = 16
+#: planes and row groups one splice launch takes (the kernel's descriptor
+#: table; the earlier design, ``csrc/resident_earlier.cu``, takes one group
+#: of 16)
+MAX_PLANES, MAX_GROUPS = 32, 4
 #: bytes an element for the dtypes the kernels move
 _ESIZE = {torch.int8: 1, torch.bool: 1, torch.int16: 2, torch.int32: 4}
 #: the widen kernel's per-plane decode (see csrc/resident.cu)
@@ -49,27 +56,52 @@ _CAST, _OP_TSTART, _STATE_TSTART, _SENTINEL = 0, 1, 2, 3
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the signatures of ``resident_splice_rows``,
+    ``resident_widen`` and, where the build has it,
+    ``resident_splice_groups`` on a loaded build of ``csrc/resident.cu``
+    (or of its earlier design, ``csrc/resident_earlier.cu``); returns
+    ``lib``."""
+    lib.resident_splice_rows.restype = ctypes.c_int
+    lib.resident_splice_rows.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.resident_widen.restype = ctypes.c_int
+    lib.resident_widen.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    if hasattr(lib, "resident_splice_groups"):
+        lib.resident_splice_groups.restype = ctypes.c_int
+        lib.resident_splice_groups.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         from ._cuda_build import load
 
-        lib = load("resident")
-        lib.resident_splice_rows.restype = ctypes.c_int
-        lib.resident_splice_rows.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.resident_widen.restype = ctypes.c_int
-        lib.resident_widen.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        _lib = lib
+        _lib = bind(load("resident"))
     return _lib
+
+
+def earlier_library() -> ctypes.CDLL:
+    """The earlier design of these kernels (``csrc/resident_earlier.cu``,
+    same C entries), built at first use; no entry point launches it."""
+    from ._cuda_build import load
+
+    return bind(load("resident_earlier"))
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -121,55 +153,99 @@ def splice_rows_reference(resident, rows, start: torch.Tensor,
     return resident
 
 
-def splice_rows(resident, rows, start: torch.Tensor, count: torch.Tensor):
+def _splice_group(resident, rows, start, count, device):
+    """Check one row group on ``device``; returns its ``(D, T, L, planes)``
+    with ``planes`` the ``(dst, src, esize, K)`` of each field."""
+    fields = type(resident)._fields
+    D, T = getattr(resident, fields[0]).shape[:2]
+    L = getattr(rows, fields[0]).shape[1]
+    planes = []
+    for f in fields:
+        dst, src = getattr(resident, f), getattr(rows, f)
+        tail = tuple(dst.shape[2:])
+        _check_plane(f"resident.{f}", dst, device, (D, T) + tail)
+        _check_plane(f"rows.{f}", src, device, (D, L) + tail, dst.dtype)
+        planes.append((dst, src, _ESIZE[dst.dtype], tail[0] if tail else 1))
+    for name, x in (("start", start), ("count", count)):
+        _check_plane(name, x, device, (D,), torch.int32)
+    return D, T, L, planes
+
+
+def splice_row_groups(groups, lib: ctypes.CDLL = None) -> None:
+    """``splice_rows`` for several row groups in ONE launch: ``groups`` is
+    a sequence of ``(resident, rows, start, count)``, each as
+    ``splice_rows`` takes them (its own namedtuple, row count T and L),
+    all with the same documents; ``MAX_PLANES`` planes in all.  The tree
+    family splices its edit, node and container axes so.  The plain
+    version for CPU tensors, the kernel for CUDA tensors."""
+    groups = list(groups)
+    if not groups:
+        return
+    device = getattr(groups[0][0], type(groups[0][0])._fields[0]).device
+    if device.type == "cpu":
+        for resident, rows, start, count in groups:
+            splice_rows_reference(resident, rows, start, count)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"splice_rows runs on cpu or cuda tensors, not "
+                         f"{device}")
+    checked = [_splice_group(*g, device) for g in groups]
+    n = sum(len(planes) for _D, _T, _L, planes in checked)
+    if n > MAX_PLANES or len(groups) > MAX_GROUPS:
+        raise ValueError(f"{n} planes in {len(groups)} groups: one launch "
+                         f"takes at most {MAX_PLANES} in {MAX_GROUPS}")
+    D = checked[0][0]
+    if any(c[0] != D for c in checked):
+        raise ValueError(f"row groups of {[c[0] for c in checked]} "
+                         f"documents: one launch splices one set")
+    live = [(g, c) for g, c in zip(groups, checked) if c[2] > 0]
+    if D == 0 or not live:
+        return
+    planes = [(i, p) for i, (_g, c) in enumerate(live) for p in c[3]]
+    lib = lib or _library()
+
+    def ints(values):
+        return (ctypes.c_int * len(values))(*values)
+
+    def ptrs(values):
+        return (ctypes.c_void_p * len(values))(*values)
+
+    args = (ptrs([p[0].data_ptr() for _i, p in planes]),
+            ptrs([p[1].data_ptr() for _i, p in planes]),
+            ints([p[2] for _i, p in planes]), ints([p[3] for _i, p in planes]))
+    with torch.cuda.device(device):
+        if len(live) == 1:
+            (_r, _w, start, count), (_D, T, L, _p) = live[0]
+            rc = lib.resident_splice_rows(
+                *args, len(planes), ctypes.c_void_p(start.data_ptr()),
+                ctypes.c_void_p(count.data_ptr()), D, T, L, _stream(device))
+        else:
+            rc = lib.resident_splice_groups(
+                *args, ints([i for i, _p in planes]), len(planes),
+                ptrs([g[2].data_ptr() for g, _c in live]),
+                ptrs([g[3].data_ptr() for g, _c in live]),
+                ints([c[1] for _g, c in live]),
+                ints([c[2] for _g, c in live]), len(live), D,
+                _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"resident_splice_rows launch failed: CUDA "
+                           f"error {rc}")
+    splice_rows.launches += 1
+
+
+def splice_rows(resident, rows, start: torch.Tensor, count: torch.Tensor,
+                lib: ctypes.CDLL = None):
     """Write ``rows[d, j]`` to ``resident[d, start[d] + j]`` for ``j <
     count[d]``, in place, for every plane of the namedtuple ``resident``
     (``[D, T]`` or ``[D, T, K]`` planes; ``rows`` the same fields as
     ``[D, L(, K)]``, same dtypes; ``start`` / ``count`` int32 ``[D]`` with
     ``0 <= count[d] <= L``).  Returns ``resident``, whose tensors keep
     their storage.  The plain version for CPU tensors, the kernel (one
-    launch for the whole tuple) for CUDA tensors."""
-    fields = type(resident)._fields
-    lead = getattr(resident, fields[0])
-    device = lead.device
-    if device.type == "cpu":
-        return splice_rows_reference(resident, rows, start, count)
-    if device.type != "cuda":
-        raise ValueError(f"splice_rows runs on cpu or cuda tensors, not "
-                         f"{device}")
-    if len(fields) > MAX_PLANES:
-        raise ValueError(f"{len(fields)} planes: one launch takes at most "
-                         f"{MAX_PLANES}")
-    D, T = lead.shape[:2]
-    L = getattr(rows, fields[0]).shape[1]
-    esize, inner = [], []
-    for f in fields:
-        dst, src = getattr(resident, f), getattr(rows, f)
-        tail = tuple(dst.shape[2:])
-        _check_plane(f"resident.{f}", dst, device, (D, T) + tail)
-        _check_plane(f"rows.{f}", src, device, (D, L) + tail, dst.dtype)
-        esize.append(_ESIZE[dst.dtype])
-        inner.append(tail[0] if tail else 1)
-    for name, x in (("start", start), ("count", count)):
-        _check_plane(name, x, device, (D,), torch.int32)
-    if D == 0 or L == 0:
-        return resident
-    n = len(fields)
-    lib = _library()
-    dst_p = (ctypes.c_void_p * n)(
-        *[getattr(resident, f).data_ptr() for f in fields])
-    src_p = (ctypes.c_void_p * n)(*[getattr(rows, f).data_ptr()
-                                    for f in fields])
-    with torch.cuda.device(device):
-        rc = lib.resident_splice_rows(
-            dst_p, src_p, (ctypes.c_int * n)(*esize),
-            (ctypes.c_int * n)(*inner), n,
-            ctypes.c_void_p(start.data_ptr()),
-            ctypes.c_void_p(count.data_ptr()), D, T, L, _stream(device))
-    if rc != 0:
-        raise RuntimeError(f"resident_splice_rows launch failed: CUDA "
-                           f"error {rc}")
-    splice_rows.launches += 1
+    launch for the whole tuple) for CUDA tensors.  ``lib`` is the
+    kernels' library unless another build is given (``bind`` it first);
+    ``splice_rows.launches`` counts the splice kernel's launches from
+    either wrapper."""
+    splice_row_groups([(resident, rows, start, count)], lib=lib)
     return resident
 
 
@@ -196,13 +272,13 @@ def _widen_planes(tree):
     return planes + [("props", tree.props, _CAST), ("n", tree.n, _CAST)]
 
 
-def widen_resident(tree, doc_base: torch.Tensor):
+def widen_resident(tree, doc_base: torch.Tensor, lib: ctypes.CDLL = None):
     """An ``MTOps`` or ``MTState`` in the narrow upload encoding as new
     int32 planes (``overflow`` stays the same bool tensor), bit for bit
     ``_widen_ops`` / ``_widen_state``; a wide tree is returned as it is,
     and an encoding ``upload_encoding`` refuses raises ``TypeError``.
     The plain version for CPU tensors, the kernel (one launch for the
-    whole tuple) for CUDA tensors."""
+    whole tuple) for CUDA tensors; ``lib`` as for ``splice_rows``."""
     if not isinstance(tree, (MTOps, MTState)):
         raise TypeError(f"widen_resident takes MTOps or MTState, not "
                         f"{type(tree).__name__}")
@@ -233,7 +309,7 @@ def widen_resident(tree, doc_base: torch.Tensor):
     kind, n = (tree.kind, None) if isinstance(tree, MTOps) \
         else (None, tree.n)
     m = len(planes)
-    lib = _library()
+    lib = lib or _library()
     with torch.cuda.device(device):
         rc = lib.resident_widen(
             (ctypes.c_void_p * m)(*[x.data_ptr() for _f, x, _ in planes]),

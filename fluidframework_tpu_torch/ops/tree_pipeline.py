@@ -18,7 +18,7 @@ This module binds ``ops/tree_kernel.py`` into the tiers of
   stay resident on the device; an exact window dispatches with zero h2d
   pack bytes, a lineage-proven grown tail uploads only its new edit rows
   and its new node/container rows, spliced in place along three row axes
-  by ``resident_cuda.splice_rows`` (one launch an axis);
+  by ``resident_cuda.splice_row_groups`` (one launch for the three);
 - **tier 0** (the family-agnostic ``DeltaExportCache``): the fold also
   writes a per-document ``[D, 2]`` digest of the final forest
   (:func:`tree_doc_digests`, masked to each document's used rows so
@@ -48,7 +48,7 @@ from .interning import Interner
 from .mergetree_kernel import (_mix_u32, export_to_numpy,
                                gather_export_rows)
 from .pipeline import PackCache, _copy_interner, pipelined_family_replay
-from .resident_cuda import splice_rows
+from .resident_cuda import splice_row_groups
 from .tree_fold_cuda import fold, fold_digest
 from .tree_kernel import (
     CONT_FIELDS,
@@ -381,7 +381,7 @@ class TreeDeviceOps:
                 c_old, c_new)
             if cont_rows is None:
                 return None
-        uploaded = 0
+        uploaded, splices = 0, []
         for group, rows, old, new in (
                 (TreeEdits, ed_rows, t_old, t_new),
                 (_TreeNodePlanes, node_rows, n_old, n_new),
@@ -392,9 +392,10 @@ class TreeDeviceOps:
                 + 2 * new.nbytes
             resident = entry.ops if group is TreeEdits \
                 else _group(group, entry.state)
-            splice_rows(resident,
-                        group(**{f: cache.put(v) for f, v in rows.items()}),
-                        cache.put(old), cache.put(new - old))
+            splices.append((
+                resident, group(**{f: cache.put(v) for f, v in rows.items()}),
+                cache.put(old), cache.put(new - old)))
+        splice_row_groups(splices)  # the axes in one launch
         # The digest masks by the NEW counts: refresh the resident aux
         # planes (a tiny upload, counted).
         entry.base = (cache.put(n_new), cache.put(c_new))

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the fold's state-out builds in shared
 and in device memory, its fold+export and resolving builds, the resident,
-tree and map kernels) against the plain PyTorch versions, and the entry
-points against the oracles, on the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
+tree, map and matrix kernels, and the earlier designs kept beside them)
+against the plain PyTorch versions, and the entry points against the
+oracles, on the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
 a CUDA device they skip.  They import neither JAX nor the JAX package, so
 on a machine without JAX they run with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -539,9 +540,10 @@ def test_kernels_raise_and_never_fall_back_on_the_card(cuda):
 
 def test_tree_splice_along_three_axes_matches_plain(cuda):
     """A grown tree chunk through tier 2.5 on the card: the resident
-    entry splices its edit, node and container rows in place (three
-    ``splice_rows`` launches), each axis equal to ``splice_rows_reference``
-    on a copy, and the entry equals the grown chunk's host arrays."""
+    entry splices its edit, node and container rows in place (one
+    ``splice_row_groups`` launch for the three axes), each axis equal to
+    ``splice_rows_reference`` on a copy, and the entry equals the grown
+    chunk's host arrays."""
     from fluidframework_tpu_torch.ops import resident_cuda
     from fluidframework_tpu_torch.ops import tree_kernel as tk
     from fluidframework_tpu_torch.ops import tree_pipeline as tp
@@ -582,7 +584,7 @@ def test_tree_splice_along_three_axes_matches_plain(cuda):
     _s, _e, aux, up = cache.acquire(st1, ed1, meta1)
     torch.cuda.synchronize()
     assert cache.stats()["spliced"] == 1
-    assert resident_cuda.splice_rows.launches == 3
+    assert resident_cuda.splice_rows.launches == 1  # the axes in one launch
     assert up < sum(x.nbytes for x in st1) + sum(x.nbytes for x in ed1)
     for group, host, old, new, planes in (
             ("edits", ed1, tp.TreeDeviceOps.t_rows(ed0),
@@ -816,13 +818,258 @@ def test_matrix_entry_point_on_card_matches_oracle(cuda):
     from fluidframework_tpu_torch.ops import matrix_kernel as mk
     from fluidframework_tpu_torch.testing import config_workloads as cw
 
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda
+
     docs = cw.hard_matrix_docs() + [cw.crafted_matrix_doc(c)
                                     for c in cw.CRAFTED_MATRIX] + \
         [cw.gen_matrix_doc(i, 64) for i in range(64)]
-    before = fold_cuda.fold_resolving.launches
+    before = (fold_cuda.fold_resolving.launches,
+              matrix_fold_cuda.fold_resolving.launches)
     stats = {}
     got = mk.replay_matrix_batch(docs, stats=stats)
-    assert fold_cuda.fold_resolving.launches == before + 1
+    assert (fold_cuda.fold_resolving.launches,
+            matrix_fold_cuda.fold_resolving.launches) == \
+        (before[0], before[1] + 1)
     assert stats == {"device_docs": len(docs) - 2, "fallback_docs": 2}
     assert [s.digest() for s in got] == \
         [mk.oracle_matrix_fallback(d).digest() for d in docs]
+
+
+# ---------------------------------------------------------------------------
+# The matrix fold (csrc/matrix_fold.cu) and the resident kernels' edges
+# ---------------------------------------------------------------------------
+
+
+def _assert_matrix_equal(want, want_resolved, got, got_resolved):
+    for f in mt.MTState._fields:
+        assert torch.equal(getattr(want, f), getattr(got, f)), f
+    assert torch.equal(want_resolved, got_resolved)
+
+
+def _matrix_batches():
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    out = _matrix_corpora()
+    # S = 4,096: the block a stream, in shared memory
+    out["large-s-2x2048"] = lambda: [cw.gen_matrix_doc(i, 2048)
+                                     for i in range(2)]
+    return out
+
+
+#: (corpus, warmth): every corpus warm, and cold where no document has a
+#: base summary (the fixture has some)
+_MATRIX_FOLDS = [(c, w) for c in sorted(_matrix_batches())
+                 for w in (("warm",) if c == "fixture" else ("cold", "warm"))]
+
+
+@pytest.mark.parametrize("corpus,warmth", _MATRIX_FOLDS)
+def test_matrix_fold_kernel_matches_plain(cuda, corpus, warmth):
+    """K4 against the plain ``replay_scan_resolving`` and its earlier
+    design (the resolving build of csrc/mergetree_fold.cu): every plane,
+    ``n``, ``overflow`` and resolved handle, padding rows included, cold
+    (no state read) where the batch is, and warm; one launch, no fact
+    violated."""
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+
+    docs = [d for d in _matrix_batches()[corpus]()
+            if not mk.known_matrix_fallback(d)]
+    st_np, ops_np, meta = mk.pack_matrix_batch(docs)
+    assert meta["cold"] or warmth == "warm"
+    state, ops = tensors_to(st_np, cuda), tensors_to(ops_np, cuda)
+    S = st_np.tstart.shape[1]
+    assert mf.placement(S) == "smem"
+    before = mf.fold_resolving.placements["smem"]
+    got, got_resolved, violations = mf.fold_resolving(
+        None if warmth == "cold" else state, ops, cold=warmth == "cold",
+        S=S)
+    torch.cuda.synchronize()
+    assert mf.fold_resolving.placements["smem"] == before + 1
+    assert not violations.any()
+    want, want_resolved = mk.replay_scan_resolving(state, ops)
+    _assert_matrix_equal(want, want_resolved, got, got_resolved)
+    old, old_resolved = fold_cuda.fold_resolving(state, ops)
+    _assert_matrix_equal(old, old_resolved, got, got_resolved)
+
+
+def test_matrix_fold_kernel_in_device_memory(cuda):
+    """A stream too large for a block's shared memory (S = 8,192) folds in
+    device memory, bit for bit as the plain fold, cold and warm."""
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    st_np, ops_np, _m = mk.pack_matrix_batch(
+        [cw.gen_matrix_doc(i, 40) for i in range(3)])
+    S = 8192
+    state = mk.matrix_fill_state(st_np.tstart.shape[0], S, cuda)
+    ops = tensors_to(ops_np, cuda)
+    assert mf.placement(S) == "gmem"
+    want, want_resolved = mk.replay_scan_resolving(state, ops)
+    for cold in (True, False):
+        before = mf.fold_resolving.placements["gmem"]
+        got, got_resolved, violations = mf.fold_resolving(
+            None if cold else state, ops, cold=cold, S=S)
+        torch.cuda.synchronize()
+        assert mf.fold_resolving.placements["gmem"] == before + 1
+        assert not violations.any()
+        _assert_matrix_equal(want, want_resolved, got, got_resolved)
+
+
+def test_matrix_fold_kernel_skips_a_zero_width_slot_that_ends_a_chunk(cuda):
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    st_np, ops_np, _m = mk.pack_matrix_batch(
+        [cw.crafted_matrix_doc("zero-width-chunk-end")])
+    _final, resolved, _v = mf.fold_resolving(
+        None, tensors_to(ops_np, cuda), cold=True, S=st_np.tstart.shape[1])
+    rows = resolved[0][torch.from_numpy(ops_np.kind[0]).to(cuda)
+                       == mk.K_RESOLVE]
+    assert rows.tolist() == [32, 31, -1]
+
+
+@pytest.mark.parametrize("fact", ["obliterate-row", "annotate-row",
+                                  "props-write", "ob-stamp"])
+def test_matrix_fold_kernel_counts_a_violated_fact(cuda, fact):
+    """A row of another kind, a props write or an obliterate stamp on a
+    live slot is counted on its stream, and ``check_facts`` raises."""
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    docs = [d for d in cw.hard_matrix_docs()
+            if not mk.known_matrix_fallback(d)]
+    st_np, ops_np, _m = mk.pack_matrix_batch(docs)
+    state, ops = tensors_to(st_np, cuda), tensors_to(ops_np, cuda)
+    live = int(torch.nonzero(state.n)[0, 0])
+    if fact.endswith("-row"):
+        kind = ops.kind.clone()
+        kind[live, 0] = 4 if fact == "obliterate-row" else 3
+        ops = ops._replace(kind=kind)
+    elif fact == "props-write":
+        pvals = ops.pvals.clone()
+        pvals[live, 0, 0] = 0
+        ops = ops._replace(pvals=pvals)
+    else:
+        stamped = state.ob2_client.clone()
+        stamped[live, 0] = 1
+        state = state._replace(ob2_client=stamped)
+    _f, _r, violations = mf.fold_resolving(state, ops)
+    assert int(violations[live]) >= 1
+    with pytest.raises(ValueError, match="facts do not hold"):
+        mf.check_facts(violations)
+
+
+def test_matrix_fold_kernel_counts_no_launch_for_an_empty_batch(cuda):
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    _s, ops_np, _m = mk.pack_matrix_batch([cw.gen_matrix_doc(0, 8)])
+    ops = mt.MTOps(*(x[:0] for x in tensors_to(ops_np, cuda)))
+    before = mf.fold_resolving.launches
+    final, resolved, violations = mf.fold_resolving(None, ops, cold=True,
+                                                    S=32)
+    assert final.tstart.shape == (0, 32) and resolved.shape[0] == 0
+    assert violations.shape == (0,)
+    assert mf.fold_resolving.launches == before
+
+
+def _splice_edge_planes(dtype, K, T, L, device, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    D = 9
+
+    def planes(width):
+        out = {f: torch.randint(-100, 100, (D, width), generator=gen)
+               for f in mt.MTOps._fields if f != "pvals"}
+        out["pvals"] = torch.randint(-100, 100, (D, width, K), generator=gen)
+        return mt.MTOps(**{f: v.to(dtype).to(device) for f, v in out.items()})
+
+    # count 0 and L; starts near T (rows past T dropped), at 0, odd
+    start = torch.tensor([0, 1, T - 1, T - 2, 3, T - L, 5, 0, T],
+                         dtype=torch.int32)
+    count = torch.tensor([0, L, L, 3, 1, L, 0, 2, L], dtype=torch.int32)
+    return planes(T), planes(L), start.to(device), count.to(device)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("T", [37, 40])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_splice_kernel_edges_match_plain_and_earlier(cuda, dtype, T, K):
+    """The splice at ``count`` 0 and L, ``start`` near T, odd K and odd T
+    (rows at every byte offset, so the vector width and the edges vary),
+    on int8, int16 and int32 planes: equal to the plain version and to the
+    earlier design, in place."""
+    from fluidframework_tpu_torch.ops import resident_cuda
+
+    base, rows, start, count = _splice_edge_planes(dtype, K, T, 7, cuda)
+    kernel, plain, before = (mt.MTOps(*(x.clone() for x in base))
+                             for _ in range(3))
+    resident_cuda.splice_rows(kernel, rows, start, count)
+    resident_cuda.splice_rows_reference(plain, rows, start, count)
+    resident_cuda.splice_rows(before, rows, start, count,
+                              lib=resident_cuda.earlier_library())
+    torch.cuda.synchronize()
+    for f in mt.MTOps._fields:
+        assert torch.equal(getattr(kernel, f), getattr(plain, f)), f
+        assert torch.equal(getattr(kernel, f), getattr(before, f)), f
+    assert not torch.equal(kernel.seq, base.seq)
+
+
+def test_splice_row_groups_is_one_launch_equal_to_plain(cuda):
+    """Three row groups of different widths, dtypes and counts in one
+    launch, each equal to its plain splice."""
+    from fluidframework_tpu_torch.ops import resident_cuda
+
+    groups, plains = [], []
+    for i, (dtype, K, T, L) in enumerate([(torch.int32, 1, 48, 8),
+                                          (torch.int16, 3, 37, 5),
+                                          (torch.int8, 1, 21, 7)]):
+        base, rows, start, count = _splice_edge_planes(dtype, K, T, L, cuda,
+                                                       seed=i)
+        start = start.clamp(max=T)
+        groups.append((mt.MTOps(*(x.clone() for x in base)), rows, start,
+                       count))
+        plains.append(resident_cuda.splice_rows_reference(
+            mt.MTOps(*(x.clone() for x in base)), rows, start, count))
+    before = resident_cuda.splice_rows.launches
+    resident_cuda.splice_row_groups(groups)
+    torch.cuda.synchronize()
+    assert resident_cuda.splice_rows.launches == before + 1
+    for (got, *_rest), want in zip(groups, plains):
+        for f in mt.MTOps._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("T", [36, 37])
+def test_widen_kernel_odd_widths_match_plain_and_earlier(cuda, T):
+    """The migration of hand-built narrow ops whose rows are and are not a
+    multiple of 4 elements (the vector and the scalar path), insert rows
+    rebased, others zeroed: equal to the plain decode and the earlier
+    design."""
+    from fluidframework_tpu_torch.ops import resident_cuda
+
+    gen = torch.Generator().manual_seed(3)
+    D = 5
+    narrow = {f: torch.randint(-3000, 3000, (D, T), generator=gen)
+              .to(dt) for f, dt in mt._UPLOAD_NARROW_TORCH[mt.MTOps].items()
+              if f != "pvals"}
+    narrow["kind"] = torch.randint(0, 5, (D, T), generator=gen).to(torch.int8)
+    narrow["client"] = torch.randint(-1, 9, (D, T), generator=gen).to(
+        torch.int8)
+    narrow["pvals"] = torch.randint(-2, 50, (D, T, 2), generator=gen).to(
+        torch.int16)
+    ops = mt.MTOps(**{f: narrow[f].to(cuda) for f in mt.MTOps._fields})
+    assert mt.upload_encoding(ops)
+    base = torch.tensor([0, 7, -5, 2 ** 31 - 10, 100], dtype=torch.int32,
+                        device=cuda)
+    got = resident_cuda.widen_resident(ops, base)
+    old = resident_cuda.widen_resident(ops, base,
+                                       lib=resident_cuda.earlier_library())
+    want = mt._widen_ops(ops, base)
+    torch.cuda.synchronize()
+    for f in mt.MTOps._fields:
+        assert torch.equal(getattr(want, f), getattr(got, f)), f
+        assert torch.equal(getattr(old, f), getattr(got, f)), f

@@ -139,7 +139,7 @@ def test_plain_lww_matches_jax_kernel_on_every_key(corpus):
         packed.key_gid, packed.op_seq, packed.is_set, packed.val_idx,
         packed.key_doc, packed.clear_doc, packed.clear_seq,
         num_keys=packed.num_keys, num_docs=packed.num_docs)
-    got_present, got_val = map_lww_cuda.lww(map_batch_from(packed),
+    got_present, got_val = map_lww_cuda.lww(map_batch_from(packed, "cpu"),
                                             packed.num_docs)
     assert got_present.dtype == torch.bool and got_val.dtype == torch.int32
     np.testing.assert_array_equal(np.asarray(want_present),

@@ -1,9 +1,11 @@
 """The port's SharedMatrix catch-up against the JAX package's and the
-oracle's: ``pack_matrix_batch`` (every plane and the host meta), the plain
-resolving fold against ``_replay_matrix_batch`` (every plane, ``n``,
-``overflow`` and every resolved handle, padding rows included),
-``replay_matrix_batch(device="cpu")`` summaries and per-reason ``stats``,
-the workload copy, the committed fixture, and the crafted resolve cases.
+oracle's: ``pack_matrix_batch`` (every plane and the host meta, its cold
+flag, no obliterate stamp), the plain resolving fold, cold and warm,
+against ``_replay_matrix_batch`` (every plane, ``n``, ``overflow`` and
+every resolved handle, padding rows included), the kernel wrapper's CPU
+path and its fact checks, ``replay_matrix_batch(device="cpu")``
+summaries, per-reason ``stats`` and transfer bytes, the workload copy,
+the committed fixture, and the crafted resolve cases.
 
 Regenerate the fixture (after a change to the JAX package's matrix fuzz)
 with ``python -m tests.test_torch_matrix_kernel --write-fixture``."""
@@ -24,7 +26,7 @@ from fluidframework_tpu.testing.fuzz import MatrixFuzzSpec, run_fuzz
 from fluidframework_tpu.testing.mocks import channel_log
 from fluidframework_tpu_torch.convert import matrix_doc_input_from, tensors_to
 from fluidframework_tpu_torch.dds import SharedMatrix
-from fluidframework_tpu_torch.ops import fold_cuda
+from fluidframework_tpu_torch.ops import fold_cuda, matrix_fold_cuda
 from fluidframework_tpu_torch.ops import matrix_kernel as mk
 from fluidframework_tpu_torch.testing import config_workloads as cw
 from tools import bench_configs
@@ -305,12 +307,166 @@ def test_oracle_copy_matches_jax_oracle_on_the_fixture():
 
 
 def test_plain_version_counts_no_launch():
-    before = (fold_cuda.fold_resolving.launches,
-              dict(fold_cuda.fold_resolving.placements))
+    entries = (fold_cuda.fold_resolving, matrix_fold_cuda.fold_resolving)
+    before = [(e.launches, dict(e.placements)) for e in entries]
     mk.replay_matrix_batch([cw.gen_matrix_doc(i, 16) for i in range(3)],
                            device="cpu")
-    assert (fold_cuda.fold_resolving.launches,
-            fold_cuda.fold_resolving.placements) == before
+    assert [(e.launches, e.placements) for e in entries] == before
+
+
+COLD_CORPORA = sorted(c for c in CORPORA if c != "fixture")
+
+
+@pytest.mark.parametrize("corpus", COLD_CORPORA)
+def test_plain_cold_fold_matches_jax_on_the_fill_state(corpus):
+    """``replay_scan_resolving(..., cold=True)`` builds the pack's fill
+    state itself and folds it as the JAX package folds the packed one."""
+    ref_docs = CORPORA[corpus]()
+    state, ops, _meta = ref_mk.pack_matrix_batch(ref_docs)
+    want, want_resolved = _ref_fold(state, ops)
+    S = np.asarray(state.tstart).shape[1]
+    final, resolved = mk.replay_scan_resolving(
+        None, tensors_to(ops, "cpu"), cold=True, S=S)
+    got = {f: x.numpy() for f, x in final._asdict().items()}
+    for f in want:
+        assert want[f].dtype == got[f].dtype, f
+        np.testing.assert_array_equal(want[f], got[f], err_msg=f)
+    np.testing.assert_array_equal(want_resolved, resolved.numpy())
+    fill = mk.matrix_fill_state(len(state.n), S, "cpu")
+    for f in mk.MTState._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(state, f)),
+                                      getattr(fill, f).numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("corpus", sorted(CORPORA))
+def test_kernel_wrapper_cpu_path_matches_jax_cold_and_warm(corpus):
+    """``matrix_fold_cuda.fold_resolving`` on CPU tensors: warm from the
+    packed state, and cold (no state) where no document has a base
+    summary; every plane, ``n``, ``overflow`` and handle as the JAX
+    package's, and no violation counted."""
+    ref_docs = [d for d in CORPORA[corpus]()
+                if not ref_mk.known_matrix_fallback(d)]
+    state, ops, _m = ref_mk.pack_matrix_batch(ref_docs)
+    want, want_resolved = _ref_fold(state, ops)
+    _s, _o, meta = mk.pack_matrix_batch(
+        [matrix_doc_input_from(d) for d in ref_docs])
+    runs = [tensors_to(state, "cpu")] + ([None] if meta["cold"] else [])
+    for st in runs:
+        final, resolved, violations = matrix_fold_cuda.fold_resolving(
+            st, tensors_to(ops, "cpu"), cold=st is None,
+            S=np.asarray(state.tstart).shape[1])
+        for f in want:
+            np.testing.assert_array_equal(
+                want[f], getattr(final, f).numpy(), err_msg=f)
+        np.testing.assert_array_equal(want_resolved, resolved.numpy())
+        assert not violations.any()
+
+
+@pytest.mark.parametrize("corpus", sorted(CORPORA))
+def test_pack_never_writes_an_obliterate_plane(corpus):
+    state, _ops, _meta = mk.pack_matrix_batch(
+        [matrix_doc_input_from(d) for d in CORPORA[corpus]()])
+    for f, fill in mk.MATRIX_OB_FILL.items():
+        assert (getattr(state, f) == fill).all(), f
+
+
+def test_cold_flag_is_false_when_any_document_has_a_base():
+    fixture = cw.hard_matrix_docs()
+    assert any(d.base_summary is not None for d in fixture)
+    work = [cw.gen_matrix_doc(i, 16) for i in range(4)]
+    assert mk.pack_matrix_batch(work)[2]["cold"] is True
+    assert mk.pack_matrix_batch(fixture)[2]["cold"] is False
+    based = [d for d in fixture if d.base_summary is not None][:1]
+    assert mk.pack_matrix_batch(work + based)[2]["cold"] is False
+
+
+def _violate(fact, state, ops):
+    """The packed batch with one matrix fact broken."""
+    st, op = tensors_to(state, "cpu"), tensors_to(ops, "cpu")
+    if fact in ("obliterate-row", "annotate-row", "unknown-kind"):
+        kind = op.kind.clone()
+        kind[1, 2] = {"obliterate-row": 4, "annotate-row": 3,
+                      "unknown-kind": 7}[fact]
+        return st, op._replace(kind=kind)
+    if fact == "props-write":
+        pvals = op.pvals.clone()
+        pvals[0, 1, 0] = 3
+        return st, op._replace(pvals=pvals)
+    if fact == "two-props-keys":
+        return st, op._replace(pvals=op.pvals.repeat(1, 1, 2))
+    plane = fact.split(":")[1]
+    stamped = getattr(st, plane).clone()
+    stamped[_based_stream(state), 0] = 5
+    return st._replace(**{plane: stamped}), op
+
+
+def _based_stream(state):
+    """A stream whose base summary gave it live slots."""
+    return int(np.nonzero(np.asarray(state.n))[0][0])
+
+
+@pytest.mark.parametrize("fact", [
+    "obliterate-row", "annotate-row", "unknown-kind", "props-write",
+    "two-props-keys", "ob-stamp:ob1_seq", "ob-stamp:ob1_client",
+    "ob-stamp:ob2_seq", "ob-stamp:ob2_client"])
+def test_kernel_wrapper_cpu_path_raises_on_each_violated_fact(fact):
+    """The facts the kernel holds (rows of kinds 0, 1, 2, 5; no props
+    write, K = 1; no obliterate stamp on a live slot): the CPU path checks
+    them on the host and raises, as the entry raises on the kernel's
+    count."""
+    docs = cw.hard_matrix_docs()
+    state, ops, _meta = mk.pack_matrix_batch(
+        [d for d in docs if not mk.known_matrix_fallback(d)])
+    st, op = _violate(fact, state, ops)
+    with pytest.raises(ValueError, match="facts do not hold"):
+        matrix_fold_cuda.fold_resolving(st, op)
+    assert matrix_fold_cuda.fact_violations(st, op)
+    # a stamp on a dead slot, or the fill itself, is no violation
+    if fact.startswith("ob-stamp"):
+        plane = fact.split(":")[1]
+        d = _based_stream(state)
+        dead = getattr(tensors_to(state, "cpu"), plane).clone()
+        dead[d, -1] = 5
+        assert 0 < int(state.n[d]) < dead.shape[1]
+        assert not matrix_fold_cuda.fact_violations(
+            tensors_to(state, "cpu")._replace(**{plane: dead}),
+            tensors_to(ops, "cpu"))
+
+
+def test_check_facts_raises_on_a_counted_violation():
+    matrix_fold_cuda.check_facts(np.zeros(4, np.int32))
+    with pytest.raises(ValueError, match="streams"):
+        matrix_fold_cuda.check_facts(np.array([0, 0, 2, 0], np.int32))
+    with pytest.raises(ValueError, match="streams"):
+        matrix_fold_cuda.check_facts(torch.tensor([1], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("cold", [True, False])
+def test_entry_moves_only_the_summary_planes(cold):
+    """The entry's transfer bytes: the ops up (and the state only when a
+    document has a base), and down ``n``, ``overflow``, the violation
+    counts, the handles and the summary planes up to the largest ``n``."""
+    docs = [cw.gen_matrix_doc(i, 24) for i in range(6)]
+    if not cold:
+        docs += [d for d in cw.hard_matrix_docs()
+                 if d.base_summary is not None
+                 and not mk.known_matrix_fallback(d)]
+    state, ops, meta = mk.pack_matrix_batch(docs)
+    assert meta["cold"] is cold
+    stage = {}
+    got = mk.replay_matrix_batch(docs, stage=stage, device="cpu")
+    assert [s.digest() for s in got] == \
+        [mk.oracle_matrix_fallback(d).digest() for d in docs]
+    final, _r = mk.replay_scan_resolving(tensors_to(state, "cpu"),
+                                         tensors_to(ops, "cpu"))
+    D2, T = ops.kind.shape
+    width = int(final.n.max())
+    up = sum(x.nbytes for x in ops) + (0 if cold else sum(
+        x.nbytes for x in state))
+    down = D2 * (4 + 1 + 4) + D2 * T * 4 \
+        + len(mk.SUMMARY_FIELDS) * D2 * width * 4
+    assert (stage["h2d_bytes"], stage["d2h_bytes"]) == (up, down)
+    assert width < state.tstart.shape[1]
 
 
 def test_entry_point_without_device_raises_when_no_cuda(monkeypatch):
