@@ -88,7 +88,22 @@ port's libraries from the sources in the checkout, and runs in order:
    the entry too); a violated fact (an obliterate row, a props write, an
    obliterate stamp) counted and raised; both batches timed beside the
    earlier design;
-11. times — each build of the fold kernel alone (CUDA events behind a
+11. the catch-up service seam (``service_phase``): one
+   ``CatchupService(service, device=...)`` call routing every channel of
+   every document into its family on the card, behind the tier-1 result
+   cache.  S1 the pinned workload as a service corpus (10,240 x 96,
+   cold: wall, ops/s, stage dict, bytes, stats deltas, the service's host
+   steps timed apart, a 256-document sample equal to the CPU container
+   fold); S2 the same call again (pure tier-1: hit rate 1.0, no bytes, no
+   launch); the device busy share of a cold pass traced under the
+   ``Catchup.ProfileDir`` gate; S3 phase 7's windows without tier 1
+   (cold, exact, every 8th grown; bytes beside phase 7's; equal to a
+   tiers-off instance); S4 the tree corpus (2,048 x 48, cold and tier-1
+   warm); S5 64 mixed documents (string, map, matrix, tree, counter; a
+   cold and a warm round equal to the forced container fold, K7 and K4
+   once a round); S6 1,024 attribution documents whose window clamps
+   their inserts, every summary equal to the container fold;
+12. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
    resident kernels, the two tree builds, the matrix fold at both shapes
@@ -103,8 +118,9 @@ port's libraries from the sources in the checkout, and runs in order:
 
 Each driven path (the one-batch entry, the state path, the large-S
 paths, the pipeline, each warm pass, each tree pass, the map and matrix
-entries) runs with every
-launch count set to 0 just before it and read just after.  One JSON object per phase goes to stdout.  Any
+entries, each service call) runs with every launch count set to 0 just
+before it and read just after; each row of the ``kernels`` line also
+carries its launches on every service call (``service_launches``).  One JSON object per phase goes to stdout.  Any
 failure raises (non-zero exit, no result line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
@@ -179,6 +195,38 @@ RESIDENT_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/resident_earlier.cu"
 #: the entry points' rates are the median of this many calls (the driven
 #: call and the ones after it)
 ENTRY_CALLS = 3
+#: the service phase (``CatchupService``, the product's catch-up seam):
+#: S1 / S2 the pinned workload as a service corpus (bench.py
+#: ``build_catchup_corpus``), cold then tier-1 warm, its oracle sample;
+#: S3 the warm windows of phase 7 without tier 1; S4 the tree corpus at
+#: the reference's ``run_tree_catchup_service`` size and its oracle
+#: sample; S5 mixed five-channel documents, driven deep enough that each
+#: map and matrix channel holds about the ops of a ``gen_matrix_doc``
+#: document (a routing and parity check: 64 documents make no service
+#: rate); S6 attribution documents
+SVC_TREE_DOCS, SVC_TREE_SAMPLE = 2048, 64
+SVC_MIXED_DOCS, SVC_MIXED_ROUNDS, SVC_MIXED_WARM_ROUNDS = 64, 320, 64
+SVC_ATTR_DOCS = 1024
+#: where the profiled S1 pass writes its trace (gitignored)
+SVC_TRACE_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
+                             "service_trace")
+#: the launch counters of each row of the ``kernels`` line (the service
+#: paths' launches are summed over them)
+ROW_COUNTS = {
+    "mergetree_fold_smem": ("fold_smem",),
+    "mergetree_fold_gmem": ("fold_gmem",),
+    "mergetree_fold_export_smem": ("fold_export_smem",),
+    "mergetree_fold_export_gmem": ("fold_export_gmem",),
+    "splice_rows": ("splice_rows",),
+    "widen_resident": ("widen_resident",),
+    "tree_fold": ("tree_fold_smem", "tree_fold_gmem"),
+    "tree_fold_digest": ("tree_fold_digest_smem", "tree_fold_digest_gmem"),
+    "matrix_fold": ("matrix_fold_smem", "matrix_fold_gmem"),
+    # the large-S row shares K4's counters; its service launches are
+    # counted once, on the row above
+    "matrix_fold_large_s": (),
+    "map_lww": ("map_lww",),
+}
 #: the JAX package's routing counts on the committed matrix fixture
 #: (tests/test_torch_matrix_kernel.py holds the port's equal to them on
 #: the CPU): one pre-pack fallback (two overlap removers in a base), one
@@ -611,7 +659,8 @@ def warm_phase(dev, docs, sample, drive, launches):
     equals ``replay_mergetree_batch`` of the same windows (which equals
     the CPU oracle on a sample); the resident kernels are held against
     their plain versions on the phase's own resident buffers.  Returns the
-    two resident kernels' rows of the ``kernels`` line."""
+    two resident kernels' rows of the ``kernels`` line and the passes'
+    records (the service phase compares its bytes with them)."""
     import numpy as np
     import torch
 
@@ -871,7 +920,8 @@ def warm_phase(dev, docs, sample, drive, launches):
     return [row("splice_rows", SPLICE_REPLACES, splice_err, s_ms,
                 s_plain_ms, s_bound, s_earlier_ms, splice_earlier_err),
             row("widen_resident", WIDEN_REPLACES, widen_err, w_ms,
-                w_plain_ms, w_bound, w_earlier_ms, widen_earlier_err)]
+                w_plain_ms, w_bound, w_earlier_ms,
+                widen_earlier_err)], passes
 
 
 def tree_fold_work(state, edits, walk_steps, counts=None):
@@ -1672,6 +1722,368 @@ def matrix_phase(dev, drive, launches, card):
     return rows
 
 
+def trace_device_seconds(trace_dir):
+    """Device time in the one ``torch.profiler`` Chrome trace under
+    ``trace_dir``: seconds of CUDA kernels, memory copies and memsets
+    (each event's duration summed), the span the trace covers, and the
+    kernels that took the most time."""
+    import glob
+
+    files = sorted(glob.glob(os.path.join(trace_dir, "*.pt.trace.json")))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace in {trace_dir}: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    total = {"kernel": 0.0, "gpu_memcpy": 0.0, "gpu_memset": 0.0}
+    by_kernel = {}
+    first, last = None, None
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        ts, dur = float(e["ts"]), float(e.get("dur", 0))
+        first = ts if first is None else min(first, ts)
+        last = ts + dur if last is None else max(last, ts + dur)
+        cat = e.get("cat")
+        if cat in total:
+            total[cat] += dur * 1e-6
+            if cat == "kernel":
+                by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) \
+                    + dur * 1e-6
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"seconds": total, "span_s": (last - first) * 1e-6
+            if first is not None else 0.0,
+            "top_kernels_s": top, "trace": os.path.relpath(files[0], REPO),
+            "trace_bytes": os.path.getsize(files[0])}
+
+
+def service_phase(dev, drive, launches, warm_passes):
+    """Phase 11: the product's catch-up seam on the card.  One
+    ``CatchupService(service, device=dev)`` call turns an op-log read into
+    a decode, a device plan, per-type routing of every channel into its
+    family's entry (K1 through ``pipelined_mergetree_replay``, K5 through
+    ``pipelined_tree_replay``, K7 and K4 through the map and matrix
+    entries, K6 on grown tails) and the container summaries' reassembly,
+    behind the tier-1 result cache.  Sub-phases, each call a driven path:
+
+    - S1: the pinned workload as a service corpus (10,240 x 96, cold):
+      wall, ops/s, stage dict, bytes, stats deltas, a 256-document sample
+      (first, middle, last) equal to the CPU container fold, and the
+      service's host steps timed apart (the string replay, the rest of
+      the device fold, the reads, plan and publish around it);
+    - S2: the same call again: pure tier-1 (hit rate 1.0, no bytes, no
+      launch);
+    - the device busy share: one more cold pass on a fresh instance under
+      the ``Catchup.ProfileDir`` gate, its trace's CUDA kernel time over
+      the fold's wall;
+    - S3: phase 7's windows without tier 1 (cold 80-op windows, the exact
+      pass, every 8th document grown to 96 ops), each pass's bytes beside
+      phase 7's, every pass equal to a tiers-off instance's;
+    - S4: the tree corpus (2,048 x 48) cold and tier-1 warm, a sample
+      equal to the container fold;
+    - S5: 64 mixed documents (string, map, matrix, tree, counter), a cold
+      and a warm round, every summary equal to the forced container fold,
+      K7 and K4 once a round;
+    - S6: 1,024 attribution documents whose window clamps their inserts,
+      every summary equal to the container fold, with key blobs.
+
+    Returns the list of the service paths."""
+    import random
+    import shutil
+
+    import torch
+
+    from fluidframework_tpu_torch.ops import pipeline as pl
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.catchup import CatchupService
+    from fluidframework_tpu_torch.testing import service_workload as sw
+    from fluidframework_tpu_torch.utils.telemetry import (
+        CollectingLogger, ConfigProvider, MonitoringContext)
+
+    paths = []
+
+    def call(path, svc, ids=None, **kw):
+        """One catch-up as a driven path: results, wall, the call's stats
+        deltas, and what it added to the stage dict and pipeline stats."""
+        stats = {}
+        stage0, pstats0 = dict(svc.pipeline_stage), dict(svc.pipeline_stats)
+        res, wall = drive(path, lambda: svc.catch_up(ids, stats=stats, **kw))
+        paths.append(path)
+        stage = {k: v - stage0.get(k, 0)
+                 for k, v in svc.pipeline_stage.items()}
+        pstats = {k: v - pstats0.get(k, 0)
+                  for k, v in svc.pipeline_stats.items()}
+        return res, wall, stats, stage, pstats
+
+    def launched(path, *rows):
+        return sum(launches[path][k] for r in rows for k in ROW_COUNTS[r])
+
+    def oracle_mismatches(service, res, doc_ids):
+        t = time.perf_counter()
+        bad = [d for d in doc_ids
+               if res[d][0] != sw.catchup_oracle_digest(service, d)]
+        return bad, time.perf_counter() - t
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"service: {what}")
+
+    n_ops = N_DOCS * N_OPS
+    no_fold = {"deviceDocs": 0, "cpuDocs": 0, "hostChannels": 0,
+               "fallbackChannels": 0}
+
+    # -- S1: cold, full width ------------------------------------------------
+    t = time.perf_counter()
+    service = LocalOrderingService()
+    ids = sw.build_catchup_corpus(service, N_DOCS, N_OPS)
+    build_s = time.perf_counter() - t
+    svc = CatchupService(service, device=dev)
+    timers = {"device_fold": 0.0, "string_replay": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                timers[key] += time.perf_counter() - t0
+        return run
+
+    real_replay = pl.pipelined_mergetree_replay
+    svc._device_fold = timed("device_fold", svc._device_fold)
+    pl.pipelined_mergetree_replay = timed("string_replay", real_replay)
+    try:
+        res1, wall1, stats1, stage1, pstats1 = call(
+            "service_s1_cold", svc, ids, upload=False)
+    finally:
+        pl.pipelined_mergetree_replay = real_replay
+        del svc._device_fold
+    picked = {0, N_DOCS // 2, N_DOCS - 1}
+    for i in range(0, N_DOCS, max(1, N_DOCS // ORACLE_SAMPLE)):
+        if len(picked) == ORACLE_SAMPLE:
+            break
+        picked.add(i)
+    sample = [ids[i] for i in sorted(picked)]
+    check(len(sample) == min(N_DOCS, ORACLE_SAMPLE), "S1 sample size")
+    bad1, oracle1_s = oracle_mismatches(service, res1, sample)
+    host_steps = {
+        "catch_up_wall": wall1,
+        "string_replay": timers["string_replay"],
+        "device_fold_outside_replay":
+            timers["device_fold"] - timers["string_replay"],
+        "reads_plan_publish": wall1 - timers["device_fold"]}
+    emit({"phase": "service_s1", "docs": N_DOCS, "ops": n_ops,
+          "corpus_build_s": build_s, "wall_s": wall1,
+          "ops_per_s": n_ops / wall1, "stats": stats1,
+          "pipeline_stats": pstats1, "stage": stage1,
+          "h2d_bytes": stage1["h2d_bytes"], "d2h_bytes": stage1["d2h_bytes"],
+          "host_steps_s": host_steps, "launches": launches["service_s1_cold"],
+          "oracle_sample": len(sample), "oracle_s": oracle1_s,
+          "oracle_mismatches": bad1[:8]})
+    check(stats1 == dict(no_fold, deviceDocs=N_DOCS), f"S1 stats {stats1}")
+    check(len(res1) == N_DOCS and not bad1, f"S1 oracle {bad1[:8]}")
+    check(launched("service_s1_cold", "mergetree_fold_export_smem") >= 1,
+          f"S1 launched no fold+export: {launches['service_s1_cold']}")
+
+    # -- S2: tier-1 warm -----------------------------------------------------
+    hits0 = svc.cache.stats()["hits"]
+    res2, wall2, stats2, stage2, _ = call("service_s2_warm", svc, ids,
+                                          upload=False)
+    hit_rate = (svc.cache.stats()["hits"] - hits0) / N_DOCS
+    emit({"phase": "service_s2", "wall_s": wall2, "ops_per_s": n_ops / wall2,
+          "hit_rate": hit_rate, "stats": stats2, "stage": stage2,
+          "launches": launches["service_s2_warm"],
+          "cache": svc.cache.stats()})
+    check(res2 == res1 and hit_rate == 1.0 and stats2 == no_fold,
+          f"S2 hit rate {hit_rate}, stats {stats2}")
+    check(not any(stage2.values()), f"S2 moved or packed: {stage2}")
+    check(not any(launches["service_s2_warm"].values()),
+          f"S2 launched: {launches['service_s2_warm']}")
+    del svc
+    torch.cuda.empty_cache()
+
+    # -- the device busy share of a cold S1 pass -----------------------------
+    shutil.rmtree(SVC_TRACE_DIR, ignore_errors=True)
+    log = CollectingLogger()
+    prof = CatchupService(service, device=dev, mc=MonitoringContext(
+        log, ConfigProvider({"Catchup.ProfileDir": SVC_TRACE_DIR})))
+    res_p, wall_p, _stats, _stage, _ = call("service_s1_profiled", prof,
+                                            ids, upload=False)
+    check(res_p == res1, "the profiled pass differs from S1")
+    fold_s = [e["durationMs"] for e in log.events
+              if e["eventName"] == "catchup:bulkCatchup_end"][0] / 1e3
+    trace = trace_device_seconds(SVC_TRACE_DIR)
+    kernel_s = trace["seconds"]["kernel"]
+    emit({"phase": "service_busy", "traced_wall_s": wall_p,
+          "traced_fold_s": fold_s, "untraced_s1_wall_s": wall1,
+          "device_busy_share": kernel_s / fold_s,
+          "device_busy_share_with_copies":
+              sum(trace["seconds"].values()) / fold_s,
+          "kernel_s_over_untraced_wall": kernel_s / wall1, **trace})
+    check(kernel_s > 0, "the trace holds no CUDA kernel time")
+    del prof, service, res1, res2, res_p
+    torch.cuda.empty_cache()
+
+    # -- S3: tiers 0 / 2 / 2.5 without tier 1 --------------------------------
+    t = time.perf_counter()
+    service = LocalOrderingService()
+    ids = sw.build_catchup_corpus(service, N_DOCS, WARM_BASE_OPS)
+    build_s = time.perf_counter() - t
+    svc = CatchupService(service, cache=None, device=dev)
+    off = CatchupService(service, cache=None, pack_cache=None,
+                         delta_cache=None, device_cache=None, device=dev)
+    s3 = {}
+    for name, inst in (("cold", svc), ("exact", svc), ("off_cold", off),
+                       ("grow", None), ("grown", svc), ("off_grown", off)):
+        if inst is None:
+            grown = sw.grow_catchup_corpus(service, ids, WARM_BASE_OPS, N_OPS,
+                                           grow_every=GROW_EVERY)
+            continue
+        res, wall, stats, stage, pstats = call(
+            f"service_s3_{name}", inst, ids, upload=False)
+        s3[name] = {"wall_s": wall, "stats": stats, "pipeline_stats": pstats,
+                    "h2d_bytes": stage["h2d_bytes"],
+                    "d2h_bytes": stage["d2h_bytes"], "stage": stage,
+                    "launches": launches[f"service_s3_{name}"], "res": res}
+    phase7 = {"cold": "cold", "exact": "exact", "grown": "grown",
+              "off_grown": "grown_off"}
+    bytes_vs_phase7 = {
+        name: {"service": [s3[name]["h2d_bytes"], s3[name]["d2h_bytes"]],
+               "phase7": [warm_passes[p]["h2d_bytes"],
+                          warm_passes[p]["d2h_bytes"]]}
+        for name, p in phase7.items()}
+    sample3 = sorted(set(ids[::max(1, N_DOCS // 32)])
+                     | set(grown[::max(1, len(grown) // 16)]))
+    bad3, oracle3_s = oracle_mismatches(service, s3["grown"]["res"], sample3)
+    agree = {"exact": s3["exact"]["res"] == s3["cold"]["res"],
+             "cold_off": s3["cold"]["res"] == s3["off_cold"]["res"],
+             "grown_off": s3["grown"]["res"] == s3["off_grown"]["res"]}
+    emit({"phase": "service_s3", "docs": N_DOCS, "base_ops": WARM_BASE_OPS,
+          "grown_docs": len(grown), "corpus_build_s": build_s,
+          "passes": {k: {x: v for x, v in r.items() if x != "res"}
+                     for k, r in s3.items()},
+          "bytes_vs_phase7": bytes_vs_phase7, "agree": agree,
+          "tiers": {"pack_cache": svc._pack_cache.stats(),
+                    "delta_cache": svc.delta_cache.stats(),
+                    "device_cache": svc.device_cache.stats()},
+          "oracle_sample": len(sample3), "oracle_s": oracle3_s,
+          "oracle_mismatches": bad3[:8]})
+    check(all(agree.values()) and not bad3, f"S3 {agree} {bad3[:8]}")
+    check(s3["exact"]["h2d_bytes"] == 0, "S3 exact pass moved bytes up")
+    check(launched("service_s3_grown", "splice_rows") >= 1,
+          f"S3 grown pass launched no splice: "
+          f"{launches['service_s3_grown']}")
+    del svc, off, service, s3
+    torch.cuda.empty_cache()
+
+    # -- S4: the tree corpus -------------------------------------------------
+    t = time.perf_counter()
+    service = LocalOrderingService()
+    ids = sw.build_tree_catchup_corpus(service, SVC_TREE_DOCS, TREE_EDITS)
+    build_s = time.perf_counter() - t
+    svc = CatchupService(service, device=dev)
+    res4, wall4, stats4, stage4, pstats4 = call("service_s4_cold", svc, ids,
+                                                upload=False)
+    hits0 = svc.cache.stats()["hits"]
+    res4w, wall4w, stats4w, stage4w, _ = call("service_s4_warm", svc, ids,
+                                              upload=False)
+    hit_rate = (svc.cache.stats()["hits"] - hits0) / len(ids)
+    sample4 = ids[::max(1, len(ids) // SVC_TREE_SAMPLE)]
+    bad4, oracle4_s = oracle_mismatches(service, res4, sample4)
+    tree_ops = SVC_TREE_DOCS * TREE_EDITS
+    emit({"phase": "service_s4", "docs": SVC_TREE_DOCS, "edits": TREE_EDITS,
+          "corpus_build_s": build_s, "cold_wall_s": wall4,
+          "cold_ops_per_s": tree_ops / wall4, "warm_wall_s": wall4w,
+          "warm_ops_per_s": tree_ops / wall4w, "hit_rate": hit_rate,
+          "stats": stats4, "pipeline_stats": pstats4, "stage": stage4,
+          "warm_stats": stats4w, "warm_stage": stage4w,
+          "launches": launches["service_s4_cold"],
+          "warm_launches": launches["service_s4_warm"],
+          "oracle_sample": len(sample4), "oracle_s": oracle4_s,
+          "oracle_mismatches": bad4[:8]})
+    check(res4w == res4 and hit_rate == 1.0 and not any(stage4w.values()),
+          f"S4 warm: hit rate {hit_rate}, stage {stage4w}")
+    check(not any(launches["service_s4_warm"].values()), "S4 warm launched")
+    check(launched("service_s4_cold", "tree_fold_digest") >= 1,
+          f"S4 launched no tree fold: {launches['service_s4_cold']}")
+    check(stats4["cpuDocs"] == 0 and not bad4, f"S4 {stats4} {bad4[:8]}")
+    del svc, service
+    torch.cuda.empty_cache()
+
+    # -- S5: mixed documents -------------------------------------------------
+    t = time.perf_counter()
+    service = LocalOrderingService()
+    rng = random.Random("mixed")
+    runtimes = sw.build_mixed_corpus(service, SVC_MIXED_DOCS, rng,
+                                     rounds=SVC_MIXED_ROUNDS)
+    build_s = time.perf_counter() - t
+    svc = CatchupService(service, device=dev)
+    cpu = CatchupService(service, device=dev)
+    cpu._device_plan = lambda work: None  # the forced container fold
+    s5 = {}
+    for rnd in ("cold", "warm"):
+        if rnd == "warm":
+            for rts in runtimes.values():
+                sw.drive_mixed_doc(rts, rng, rounds=SVC_MIXED_WARM_ROUNDS)
+        want = cpu.catch_up(upload=False)
+        got, wall, stats, stage, pstats = call(f"service_s5_{rnd}", svc)
+        path = f"service_s5_{rnd}"
+        s5[rnd] = {"wall_s": wall, "stats": stats, "pipeline_stats": pstats,
+                   "stage": stage, "launches": launches[path],
+                   "equals_container_fold": got == want}
+        check(got == want, f"S5 {rnd}: summaries differ from the container "
+                           f"fold")
+        check(stats["deviceDocs"] == SVC_MIXED_DOCS and stats["cpuDocs"] == 0
+              and stats["hostChannels"] > 0, f"S5 {rnd} stats {stats}")
+        check(launched(path, "map_lww") == 1
+              and launched(path, "matrix_fold") == 1
+              and launched(path, "mergetree_fold_export_smem") >= 1
+              and launched(path, "tree_fold_digest") >= 1,
+              f"S5 {rnd} launches {launches[path]}")
+    channel_ops = {}
+    for doc_id in runtimes:
+        for m in service.oplog.get(doc_id, from_seq=0):
+            if isinstance(m.contents, dict) \
+                    and m.contents.get("type") == "groupedBatch":
+                for op in m.contents["ops"]:
+                    channel_ops[op["channel"]] = \
+                        channel_ops.get(op["channel"], 0) + 1
+    emit({"phase": "service_s5", "docs": SVC_MIXED_DOCS,
+          "rounds_cold": SVC_MIXED_ROUNDS,
+          "rounds_warm": SVC_MIXED_WARM_ROUNDS,
+          "channel_ops_per_doc": {k: v / SVC_MIXED_DOCS
+                                  for k, v in channel_ops.items()},
+          "corpus_build_s": build_s, "rounds": s5})
+    del svc, cpu, service, runtimes
+    torch.cuda.empty_cache()
+
+    # -- S6: attribution documents ------------------------------------------
+    t = time.perf_counter()
+    service = LocalOrderingService()
+    ids = sw.build_catchup_corpus(service, SVC_ATTR_DOCS, N_OPS,
+                                  attribution=True)
+    build_s = time.perf_counter() - t
+    svc = CatchupService(service, device=dev)
+    res6, wall6, stats6, stage6, pstats6 = call("service_s6", svc, ids,
+                                                upload=False)
+    bad6, oracle6_s = oracle_mismatches(service, res6, ids)
+    svc.catch_up(ids)  # tier-1 hits, uploaded: read the trees back
+    keyed = sum("attribution" in service.storage.latest(d)[0].get(
+        ".datastores").get("ds").get("text").children for d in ids)
+    emit({"phase": "service_s6", "docs": SVC_ATTR_DOCS,
+          "window": sw.ATTRIBUTION_WINDOW, "corpus_build_s": build_s,
+          "wall_s": wall6, "ops_per_s": SVC_ATTR_DOCS * N_OPS / wall6,
+          "stats": stats6, "pipeline_stats": pstats6, "stage": stage6,
+          "launches": launches["service_s6"], "keyed_docs": keyed,
+          "oracle_docs": len(ids), "oracle_s": oracle6_s,
+          "oracle_mismatches": bad6[:8]})
+    check(stats6["cpuDocs"] == 0 and not bad6 and keyed == SVC_ATTR_DOCS,
+          f"S6 {stats6}, {len(bad6)} mismatches, {keyed} keyed")
+    check(launched("service_s6", "mergetree_fold_export_smem") >= 1,
+          "S6 launched no fold+export")
+    return paths
+
+
+
 def main() -> int:
     import torch
 
@@ -1999,7 +2411,7 @@ def main() -> int:
                              "layout's")
 
     # -- 7. the warm catch-up path at full width ---------------------------
-    k6_rows = warm_phase(dev, docs, sample, drive, launches)
+    k6_rows, warm_passes = warm_phase(dev, docs, sample, drive, launches)
 
     # -- 8. SharedTree catch-up at full width ------------------------------
     k5_rows, tree_splice = tree_phase(dev, drive, launches)
@@ -2011,7 +2423,10 @@ def main() -> int:
     # -- 10. SharedMatrix catch-up at full width ---------------------------
     k4_rows = matrix_phase(dev, drive, launches, card)
 
-    # -- 11. times ---------------------------------------------------------
+    # -- 11. the catch-up service seam -------------------------------------
+    service_paths = service_phase(dev, drive, launches, warm_passes)
+
+    # -- 12. times ---------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -2090,7 +2505,7 @@ def main() -> int:
                 "library": "none: no one PyTorch call computes the "
                            "merge-tree fold", "card": card}
 
-    emit({"kernels": [
+    rows = [
         entry("fold_smem", "smem", "state", [D, S, T, K],
               parity["fold_smem"], ms, call_ms, plain_ms, bound),
         entry("fold_gmem", "gmem", "large_state", [wave, lg_S, lg_T, 1],
@@ -2100,8 +2515,13 @@ def main() -> int:
         entry("fold_export_gmem", "gmem", "large_pipeline",
               [wave, lg_S, lg_T, 1], parity["fold_export_gmem"], lg_fx[0],
               lg_fx[2], lg_fx[3], lg_fx[4]),
-    ] + [dict(r, card=card) for r in k6_rows + k5_rows] + k4_rows
-        + [k7_row]})
+    ] + [dict(r, card=card) for r in k6_rows + k5_rows] + k4_rows \
+        + [k7_row]
+    for r in rows:
+        r["service_launches"] = {
+            path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
+            for path in service_paths}
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -9,9 +9,12 @@ needs are kept here as copies.
 Layout:
 
 - ``protocol/``, ``utils/``, ``dds/``, ``runtime/`` — copies of the op
-  model, the canonical summary tree, the SharedString and SharedTree CPU
-  oracles and the op attributor (fallback documents and byte-identity
-  checks);
+  model, the sequencer, the canonical summary tree, the CPU oracles of
+  every channel type, the container runtime and the op attributor
+  (fallback documents, the service's CPU fold and byte-identity checks);
+- ``service/`` — the catch-up service (``CatchupService``: one call
+  routes every channel family to its entry on the card) with its cache
+  tiers and the ordering service and op log it reads;
 - ``ops/`` — packing (``native_pack`` with ``csrc/oppack.cpp``), the
   merge-tree fold and export (``mergetree_kernel``), the hand-written
   Hopper fold kernel (``fold_cuda`` with ``csrc/mergetree_fold.cu``), the
@@ -20,10 +23,10 @@ Layout:
   SharedTree family (``tree_kernel``, ``tree_pipeline``, with the
   edit-fold kernel ``tree_fold_cuda`` / ``csrc/tree_fold.cu``);
 - ``convert`` — carries the JAX package's packed arrays and doc inputs
-  across by attribute name;
-- ``testing/`` — the pinned synthetic workloads (SharedString and
-  SharedTree) and the hard-semantics fixture that ``chip_smoke.py``
-  drives.
+  across by attribute name, and a service's store and log as plain data;
+- ``testing/`` — the pinned synthetic workloads (SharedString,
+  SharedTree, the service corpora) and the hard-semantics fixtures that
+  ``chip_smoke.py`` drives.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a CUDA device a call that names none raises.

@@ -1,14 +1,17 @@
-"""Carry packed arrays and document inputs across.
+"""Carry packed arrays, document inputs and service state across.
 
 Everything is read by attribute name, so any object with the ``MTState``
 / ``MTOps`` (or ``TreeState`` / ``TreeEdits``, or a packed map batch's)
 field names holding numpy
 arrays converts — the port's own packers' output and the JAX package's
 (which is numpy as well) alike — and no import of the JAX package is
-needed.
+needed.  The catch-up service's state (its summary store and op log, the
+service's "weights") crosses as plain data: ``load_service_corpus``.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -129,3 +132,32 @@ def map_batch_from(packed, device) -> LWWInputs:
     ``pack_map_batch`` output included) as the port's ``LWWInputs`` of
     tensors on ``device``."""
     return lww_inputs(packed, device)
+
+
+def summary_tree_from_plain(obj) -> SummaryTree:
+    """A port ``SummaryTree`` from nested plain data: ``{name: bytes |
+    dict}``, a dict for each sub-tree and bytes for each blob."""
+    out = SummaryTree()
+    for name, child in obj.items():
+        out.children[name] = summary_tree_from_plain(child) \
+            if isinstance(child, dict) else SummaryBlob(bytes(child))
+    return out
+
+
+def load_service_corpus(service, docs) -> list:
+    """Fill a port ``LocalOrderingService``'s summary store and op log
+    from plain data.  ``docs`` maps each document id to a dict with
+    ``"summary"`` (nested ``{name: bytes | dict}``, uploaded at
+    ``"seq"``) and ``"messages"`` (the sequenced messages as the field
+    dicts of ``SequencedMessage.to_dict``, appended in order); either may
+    be absent, so a later call appends a grown tail alone.  The op log
+    drops messages at or below its head, so re-sending a whole log is a
+    no-op for what it already holds.  Returns the document ids."""
+    for doc_id, doc in docs.items():
+        if doc.get("summary") is not None:
+            service.storage.upload(
+                doc_id, summary_tree_from_plain(doc["summary"]), doc["seq"])
+        for m in doc.get("messages", ()):
+            service.oplog.append(
+                doc_id, SequencedMessage.from_dict(copy.deepcopy(m)))
+    return list(docs)

@@ -915,8 +915,12 @@ class MergeTreeDocInput:
     binary_clients: Optional[Sequence[str]] = None
     binary_prop_keys: Optional[Sequence[str]] = None
     binary_values: Optional[Sequence[Any]] = None
-    #: attribution-enabled document: the summary gains an "attribution"
-    #: blob.  Not ported yet (ROADMAP queue 1): such documents raise.
+    #: attribution-enabled document (SURVEY §1 layer 8): the summary gains
+    #: an "attribution" blob of pre-clamp insert seqs per merged sub-run
+    #: (byte-identical to SharedString.summarize with an attributor).  The
+    #: export already carries pre-clamp ins_seq — clamping is host-side —
+    #: so this is pure extraction work; such docs take the Python record
+    #: path (the C++ extractor emits bodies only).
     attribution: bool = False
     #: Opaque identity of the (document, base summary, storage generation)
     #: this tail extends — set by callers that want the pipeline's cache
@@ -926,14 +930,6 @@ class MergeTreeDocInput:
     #: so a shared (first_seq .. last_seq) prefix is byte-identical.  None
     #: (the default) opts the document out of every cache tier.
     cache_token: Optional[tuple] = None
-
-
-def _refuse_attribution(docs) -> None:
-    for doc in docs:
-        if doc.attribution:
-            raise NotImplementedError(
-                f"{doc.doc_id}: attribution documents are not ported yet "
-                f"(a later slice of the port, ROADMAP queue 1)")
 
 
 class _DocPack:
@@ -1225,8 +1221,15 @@ def pack_mergetree_batch(docs: Sequence[MergeTreeDocInput]):
     return MTState(**st), MTOps(**op), meta
 
 
-def _extract_records(meta, state_np: dict, d: int) -> List[dict]:
-    """Device state → the oracle's normalized record list (host side)."""
+def _extract_records(meta, state_np: dict, d: int,
+                     return_keys: bool = False):
+    """Device state → the oracle's normalized record list (host side).
+
+    ``return_keys=True`` additionally returns the ATTRIBUTION KEYS,
+    mirroring ``MergeTreeOracle.normalized_records(return_keys=True)``:
+    for each emitted record whose seq got clamped, the pre-clamp insert
+    seqs of its merged sub-runs as ``[record_idx, [[chars, seq], ...]]``
+    (the export's ins_seq column is pre-clamp — clamping happens here)."""
     doc = meta["docs"][d]
     pack = meta["doc_packs"][d]
     arena: TextArena = meta["arena"]
@@ -1234,6 +1237,7 @@ def _extract_records(meta, state_np: dict, d: int) -> List[dict]:
     values: Interner = meta["values"]
     msn = doc.final_msn
     records: List[dict] = []
+    run_keys: List[Optional[list]] = []
     n = int(state_np["n"][d])
     for s in range(n):
         rs = int(state_np["rem_seq"][d, s])
@@ -1289,9 +1293,24 @@ def _extract_records(meta, state_np: dict, d: int) -> List[dict]:
                 and prev.get("p") == rec.get("p")
             ):
                 prev["t"] += rec["t"]
+                runs = run_keys[-1]
+                if runs is not None:
+                    if runs[-1][1] == ins_seq:
+                        runs[-1][0] += len(rec["t"])  # same author run
+                    else:
+                        runs.append([len(rec["t"]), ins_seq])
                 continue
         records.append(rec)
-    return records
+        run_keys.append(
+            [[len(rec["t"]), ins_seq]] if rec["s"] == 0 else None
+        )
+    if not return_keys:
+        return records
+    keys = [
+        [i, runs] for i, runs in enumerate(run_keys)
+        if runs is not None and any(seq for _chars, seq in runs)
+    ]
+    return records, keys
 
 
 def known_oracle_fallback(doc: MergeTreeDocInput) -> bool:
@@ -1338,8 +1357,14 @@ def oracle_fallback_summary(doc: MergeTreeDocInput) -> SummaryTree:
     segment, or a base summary the device state cannot carry)."""
     from ..dds.sequence import SharedString
 
-    _refuse_attribution([doc])
     replica = SharedString(doc.doc_id)
+    if doc.attribution:
+        # Attribution-enabled docs must emit their keys blob on fallback
+        # too (summarize keys on the flag alone; table reads are container
+        # state, not needed here).
+        from ..runtime.attributor import Attributor
+
+        replica._attributor = Attributor()
     if doc.base_records is not None:
         replica.tree.load_records(doc.base_records, doc.base_seq, doc.base_msn)
         for label, obj in (doc.base_intervals or {}).items():
@@ -1532,7 +1557,6 @@ def summaries_from_export(meta, export_np,
     from .native_pack import extract_bodies
 
     docs = meta["docs"]
-    _refuse_attribution(docs)
     D = len(docs)
     _i16, ob_rows_f, ov_rows_f, i8_f, props_rows_f = _export_flags(meta)
     widened = widen_export_native(
@@ -1554,11 +1578,19 @@ def summaries_from_export(meta, export_np,
         stats["device_docs"] = stats.get("device_docs", 0) + D - n_skip
     msn = np.asarray([doc.final_msn for doc in docs], np.int32)
     arena_text = meta["arena"].finalize()
+    # Attribution docs take the Python record path below (their key blob
+    # needs the pre-clamp seqs alongside the merge boundaries), so the
+    # C++ pass must not extract their bodies just to discard them —
+    # body_skip extends the fallback skip WITHOUT polluting the stats.
+    body_skip = skip.copy()
+    for d in range(D):
+        if docs[d].attribution:
+            body_skip[d] = 1
     bodies = extract_bodies(
         np.ascontiguousarray(export_np, np.int32), arena_text,
         [list(meta["doc_packs"][d].clients.values) for d in range(D)],
         meta["prop_keys"], list(meta["values"].values),
-        msn, skip, int(NOT_REMOVED),
+        msn, body_skip, int(NOT_REMOVED),
     )
     out: List[SummaryTree] = []
     live_len = state_np["live_len"]
@@ -1575,7 +1607,16 @@ def summaries_from_export(meta, export_np,
             b'{"length":%d,"minSeq":%d,"seq":%d}'
             % (int(live_len[d]), doc.final_msn, doc.final_seq),
         )
-        if bodies is not None:
+        if doc.attribution:
+            # Attribution docs take the Python record path (pinned
+            # bit-identical to the C++ bodies): the keys blob needs the
+            # pre-clamp seqs alongside the merge boundaries.
+            records, keys = _extract_records(meta, state_np, d,
+                                             return_keys=True)
+            tree.add_blob("body", canonical_json(records))
+            if keys:
+                tree.add_blob("attribution", canonical_json(keys))
+        elif bodies is not None:
             tree.add_blob("body", bodies[d])
         else:
             tree.add_blob(
@@ -1613,7 +1654,6 @@ def replay_mergetree_batch(
     from .batching import partition_replay
 
     dev = resolve_device(device)
-    _refuse_attribution(docs)
 
     def fold_batch(batch):
         state, ops, meta = pack_mergetree_batch(batch)

@@ -1,2 +1,19 @@
-"""Copies of the JAX package's runtime modules the port needs (the op
-attributor, for attribution documents that fall back to the oracle)."""
+"""Copies of the JAX package's runtime modules the port needs: the channel
+registry, datastores and the container runtime (the catch-up service's
+CPU fold and summary reassembly), the op attributor, and their helpers
+(handles, blobs, gc, id compressor, op pipeline).  The summarizer is not
+ported yet."""
+
+from .registry import ChannelFactory, ChannelRegistry, default_registry
+from .datastore import ChannelDeltaConnection, FluidDataStoreRuntime
+from .container import ContainerRuntime, OrderedClientElection
+
+__all__ = [
+    "ChannelFactory",
+    "ChannelRegistry",
+    "default_registry",
+    "ChannelDeltaConnection",
+    "FluidDataStoreRuntime",
+    "ContainerRuntime",
+    "OrderedClientElection",
+]

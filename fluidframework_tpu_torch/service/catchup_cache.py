@@ -1,13 +1,25 @@
-"""Tier 0 of the catch-up cache: the digest-gated delta download.
+"""The catch-up service's cache tiers 1 and 0 (the port's copies of
+``CatchupResultCache`` with ``CachedFold`` / ``_Flight``, and of
+``DeltaExportCache`` with ``_DeltaEntry`` and ``tree_nbytes``, from
+``fluidframework_tpu/service/catchup_cache.py``).
 
-The port's copy of ``DeltaExportCache`` (with ``_DeltaEntry`` and
-``tree_nbytes``) from ``fluidframework_tpu/service/catchup_cache.py``.
-The pipeline (``ops/pipeline.py``) asks the fold for a per-document state
-digest, fetches only that ``[D, 2]`` plane eagerly, and downloads and
-extracts only the documents whose digest changed; unchanged documents
-serve their cached summaries byte-identically.  The tier-1 result cache
-(``CatchupResultCache``) and the streaming fold's ``StreamHeadIndex`` are
-not ported yet (ROADMAP queue 1 item 4).
+Tier 1, the seq-anchored result cache: folded summaries keyed ``(storage
+epoch, doc id, base summary digest, base ref_seq, tail head seq)``.  The
+op log is append-only and the summary store content-addressed, so within
+one storage generation that tuple pins the fold's exact input and a
+cached tree is byte-identical to a fresh fold.  Concurrent requests for
+one key collapse to one fold (single-flight): the first caller
+``begin()``s and leads, the others ``join()`` and wait for its
+``finish()``.  No wall-clock: recency is an LRU over dict insertion order.
+
+Tier 0, the digest-gated delta download: the pipeline (``ops/pipeline.py``)
+asks the fold for a per-document state digest, fetches only that
+``[D, 2]`` plane eagerly, and downloads and extracts only the documents
+whose digest changed; unchanged documents serve their cached summaries
+byte-identically.
+
+The streaming fold's ``StreamHeadIndex`` is not ported yet (ROADMAP
+queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -17,6 +29,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 from ..protocol.summary import SummaryBlob, SummaryTree
 from ..utils.telemetry import CounterSet
+
+#: default bound for join(): a crashed leader must never hang a follower
+#: forever, even at call sites that never thought about timeouts
+#: (CatchupService.JOIN_TIMEOUT carries the same value; the
+#: Catchup.JoinTimeout gate overrides it per service).  Pass
+#: timeout=None explicitly to wait unbounded.
+DEFAULT_JOIN_TIMEOUT = 60.0
 
 #: accounting overhead charged per summary node (name + dict slot + object
 #: headers) so byte budgets track real memory, not just blob payloads.
@@ -33,6 +52,234 @@ def tree_nbytes(node) -> int:
         for name, child in node.children.items():
             total += len(name) + tree_nbytes(child)
     return total
+
+
+class CachedFold(NamedTuple):
+    """A served cache entry: the folded tree plus its handle, digested
+    ONCE at publish time — a hit is a dict lookup, never a Merkle walk."""
+
+    tree: SummaryTree
+    handle: str
+
+
+class _Flight:
+    """One in-flight fold: the leader publishes, waiters block on the
+    event and read the result (None = leader abandoned; waiters retry)."""
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.result: Optional[CachedFold] = None
+
+
+class CatchupResultCache:
+    """Byte-bounded LRU of folded catch-up summaries with single-flight.
+
+    All mutation happens under one lock; ``join()`` waits outside it.
+    Counters: ``hits`` / ``misses`` (lookup outcomes), ``inserts`` /
+    ``evictions`` (LRU churn), ``waits`` (single-flight joins that
+    blocked on a leader), ``invalidations`` (epoch drops).
+    """
+
+    def __init__(self, max_bytes: int = 256 << 20) -> None:
+        self.max_bytes = int(max_bytes)
+        self._lock = threading.Lock()
+        # dict insertion order IS the LRU order (touch = delete+reinsert).
+        self._entries: Dict[tuple, Tuple[CachedFold, int]] = {}  # guarded-by: _lock
+        self._bytes = 0  # guarded-by: _lock
+        self._flights: Dict[tuple, _Flight] = {}  # guarded-by: _lock
+        self._last_epoch: Optional[str] = None  # guarded-by: _lock (invalidate fast path)
+        self.counters = CounterSet(
+            "hits", "misses", "inserts", "evictions", "waits",
+            "invalidations",
+        )  # guarded-by: _lock (CounterSet is not internally synchronized)
+
+    # -- introspection ---------------------------------------------------------
+
+    @property
+    def current_bytes(self) -> int:
+        # Under the lock (fluidrace FL-RACE-GUARD): `_bytes` is adjusted
+        # in multi-step insert/evict sequences — an unlocked read could
+        # observe a torn mid-eviction value.
+        with self._lock:
+            return self._bytes
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            out = self.counters.snapshot()
+            out["entries"] = len(self._entries)
+            out["bytes"] = self._bytes
+        return out
+
+    # -- plain lookup/insert ---------------------------------------------------
+
+    def lookup(self, key: tuple) -> Optional[CachedFold]:
+        """Cached (tree, handle) for ``key`` (LRU-touched), or None."""
+        with self._lock:
+            found = self._get_locked(key)
+            self.counters.bump("hits" if found is not None else "misses")
+            return found
+
+    def _get_locked(self, key: tuple) -> Optional[CachedFold]:
+        """Uncounted fetch + LRU touch.  Counting discipline: ``hits``
+        bump wherever an entry is served; ``misses`` bump ONLY at the
+        authoritative claim point (``begin``/``lookup``) — ``join`` is a
+        probe and counting its empty result too would double-count every
+        doc that probes first and claims right after."""
+        entry = self._entries.get(key)
+        if entry is None:
+            return None
+        # Touch: move to the back of the insertion order.
+        del self._entries[key]
+        self._entries[key] = entry
+        return entry[0]
+
+    def insert(self, key: tuple, tree: SummaryTree) -> CachedFold:
+        with self._lock:
+            return self._insert_locked(key, tree)
+
+    def _insert_locked(self, key: tuple, tree: SummaryTree) -> CachedFold:
+        # Digest ONCE here, at publish time — every later hit serves the
+        # stored handle instead of re-walking the tree.
+        fold = CachedFold(tree, tree.digest())
+        nbytes = tree_nbytes(tree)
+        old = self._entries.pop(key, None)
+        if old is not None:
+            self._bytes -= old[1]
+        if nbytes > self.max_bytes:
+            # Never admit an entry the budget cannot hold: admitting it
+            # would evict the whole cache for a single un-keepable tree.
+            self.counters.bump("evictions")
+            return fold
+        self._entries[key] = (fold, nbytes)
+        self._bytes += nbytes
+        self.counters.bump("inserts")
+        while self._bytes > self.max_bytes and self._entries:
+            oldest = next(iter(self._entries))
+            _fold, n = self._entries.pop(oldest)
+            self._bytes -= n
+            self.counters.bump("evictions")
+        return fold
+
+    # -- single-flight ---------------------------------------------------------
+
+    def begin(self, key: tuple):
+        """Claim a key: ``("hit", CachedFold)`` when cached, else
+        ``("lead", None)`` — the caller is now the leader and MUST
+        ``finish`` or ``abandon`` the key (use try/finally).  A second
+        ``begin`` for a key already in flight also leads (callers
+        serialized by the catch-up lock re-claim after an abandon);
+        waiters use :meth:`join`."""
+        with self._lock:
+            found = self._get_locked(key)
+            if found is not None:
+                self.counters.bump("hits")
+                return "hit", found
+            self.counters.bump("misses")
+            self._flights.setdefault(key, _Flight())
+            return "lead", None
+
+    def finish(self, key: tuple, tree: SummaryTree) -> CachedFold:
+        """Leader publishes: insert into the LRU and wake every waiter.
+        Returns the (tree, handle) pair so the leader reuses the one
+        digest computed at insert."""
+        with self._lock:
+            fold = self._insert_locked(key, tree)
+            flight = self._flights.pop(key, None)
+        if flight is not None:
+            flight.result = fold
+            flight.done.set()
+        return fold
+
+    def abandon(self, key: tuple) -> None:
+        """Leader failed: wake waiters empty-handed (they retry or fold
+        themselves).  Safe on a key that was already finished."""
+        with self._lock:
+            flight = self._flights.pop(key, None)
+        if flight is not None:
+            flight.done.set()
+
+    def join(self, key: tuple,
+             timeout: Optional[float] = DEFAULT_JOIN_TIMEOUT,
+             reap_on_timeout: bool = True) -> Optional[CachedFold]:
+        """Wait-or-read: the cached (tree, handle); else, when a leader
+        is in flight, block until it publishes and return its result
+        (None if it abandoned or ``timeout`` elapsed); else None
+        immediately.
+
+        With ``reap_on_timeout`` (the default), a timeout presumes the
+        leader crashed without reaching its finally-abandon: the flight
+        is removed — only if it is still THE flight this caller waited
+        on, so a fresh leader's flight is never popped — and its event
+        set, waking every other waiter stuck on the dead leader (they
+        retry or fold themselves).  A merely-slow leader losing its
+        flight is benign: ``finish`` on a popped flight still publishes
+        to the LRU.  Callers waiting a DELIBERATELY short bound (the
+        server's warm priority lane giving up and taking the admission
+        fold lane instead) pass ``reap_on_timeout=False`` — an impatient
+        reader must not tear down a live leader's flight."""
+        with self._lock:
+            found = self._get_locked(key)
+            if found is not None:
+                self.counters.bump("hits")
+                return found
+            flight = self._flights.get(key)
+            if flight is None:
+                return None  # probe only: begin() counts the miss
+            self.counters.bump("waits")
+        if not flight.done.wait(timeout):
+            if reap_on_timeout:
+                self._reap_flight(key, flight)
+            return None
+        return flight.result
+
+    def _reap_flight(self, key: tuple, flight: _Flight) -> None:
+        """A waiter timed out: presume the leader crashed without its
+        finally-abandon and remove the flight — one critical section,
+        identity-guarded: the re-validation pops the flight only if it is
+        still THE object this waiter waited on, so a fresh leader's
+        flight is never reaped (pinned by
+        test_join_timeout_pop_is_identity_guarded)."""
+        with self._lock:
+            if self._flights.get(key) is flight:
+                self._flights.pop(key)
+                # set() only for the flight this caller reaped: when the
+                # guard fails, whoever popped it (finish/abandon/another
+                # reaper) sets the event once the result is in place —
+                # setting it here would wake the other waiters to
+                # result=None on a COMPLETED fold.
+                flight.done.set()
+
+    # -- epoch invalidation ----------------------------------------------------
+
+    def invalidate_epoch(self, current_epoch: str) -> int:
+        """Drop every entry pinned to a DIFFERENT storage generation.
+        The epoch is key component 0, so stale generations can never be
+        served even without this call — eager dropping just frees the
+        budget the moment the store is recreated.  Returns entries
+        dropped.  O(1) while the epoch is unchanged (the hot serving
+        loop calls this per request; the full scan runs only on an
+        actual generation change).  Callers sharing one cache must all
+        serve the SAME store: this treats every other epoch as dead, so
+        two live stores alternating here would evict each other."""
+        with self._lock:
+            if current_epoch == self._last_epoch:
+                return 0
+            self._last_epoch = current_epoch
+            stale = [k for k in self._entries if k[0] != current_epoch]
+            for key in stale:
+                _tree, n = self._entries.pop(key)
+                self._bytes -= n
+                self.counters.bump("invalidations")
+        return len(stale)
+
+
+# ---------------------------------------------------------------------------
+# Tier 0: digest-gated delta-download cache
+# ---------------------------------------------------------------------------
 
 
 class _DeltaEntry(NamedTuple):

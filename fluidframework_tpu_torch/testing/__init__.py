@@ -1,2 +1,3 @@
-"""Workloads for the port: the pinned synthetic catch-up corpus and the
-hard-semantics fixture."""
+"""Workloads for the port: the pinned synthetic catch-up corpora (the
+library entries' and the catch-up service's), the hard-semantics
+fixtures, and the fault injector the op log reads."""

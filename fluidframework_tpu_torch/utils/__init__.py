@@ -1,1 +1,2 @@
-"""Shared utilities (copy of the JAX package's event emitter)."""
+"""Shared utilities (copies of the JAX package's event emitter, telemetry
+and JSON-lines helpers)."""

@@ -1073,3 +1073,50 @@ def test_widen_kernel_odd_widths_match_plain_and_earlier(cuda, T):
     for f in mt.MTOps._fields:
         assert torch.equal(getattr(want, f), getattr(got, f)), f
         assert torch.equal(getattr(old, f), getattr(got, f)), f
+
+
+@pytest.mark.parametrize("corpus", ["mixed", "attribution"])
+def test_catchup_service_on_card_equals_cpu(cuda, corpus):
+    """The catch-up seam on the card: mixed five-channel documents (a cold
+    and a warm round) or attribution documents whose window clamps their
+    inserts, through ``CatchupService`` on ``cuda`` and on ``cpu`` over
+    the same store and log: equal results and stats deltas, every kernel
+    family of the corpus launched."""
+    import random
+
+    from fluidframework_tpu_torch.ops import (map_lww_cuda,
+                                              matrix_fold_cuda,
+                                              tree_fold_cuda)
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.catchup import CatchupService
+    from fluidframework_tpu_torch.testing import service_workload as sw
+
+    service = LocalOrderingService()
+    rng = random.Random("mixed")
+    if corpus == "mixed":
+        runtimes = sw.build_mixed_corpus(service, 6, rng)
+    else:
+        sw.build_catchup_corpus(service, 12, 48, attribution=True)
+    card = CatchupService(service, device=cuda)
+    cpu = CatchupService(service, device="cpu")
+    for rnd in range(2 if corpus == "mixed" else 1):
+        if rnd:
+            for rts in runtimes.values():
+                sw.drive_mixed_doc(rts, rng, rounds=6)
+        fold_cuda.reset_launches()
+        map_lww_cuda.reset_launches()
+        matrix_fold_cuda.reset_launches()
+        tree_fold_cuda.reset_launches()
+        c_stats, p_stats = {}, {}
+        want = cpu.catch_up(stats=c_stats, upload=False)
+        got = card.catch_up(stats=p_stats, upload=False)
+        assert got == want and p_stats == c_stats
+        assert p_stats["cpuDocs"] == 0
+        assert fold_cuda.fold_export.launches >= 1
+        if corpus == "mixed":
+            assert map_lww_cuda.lww.launches == 1
+            assert matrix_fold_cuda.fold_resolving.launches == 1
+            assert tree_fold_cuda.fold_digest.launches >= 1
+            assert p_stats["hostChannels"] > 0
+        for doc_id, (handle, _seq) in got.items():
+            assert handle == sw.catchup_oracle_digest(service, doc_id)

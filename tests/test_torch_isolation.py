@@ -15,6 +15,7 @@ PORT = ROOT / "fluidframework_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py")
                     if PORT / "build" not in p.parents) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_fold_variants.py",
+       ROOT / "tools" / "torch_kernel_turns.py",
        ROOT / "tools" / "torch_pipeline_turns.py"]
 FORBIDDEN = ("jax", "jaxlib", "fluidframework_tpu")
 
@@ -51,6 +52,21 @@ def test_port_replays_with_jax_and_the_jax_package_blocked():
         "got = replay_mergetree_batch(docs, device='cpu')\n"
         "want = [oracle_replay(d).summarize().digest() for d in docs]\n"
         "assert [s.digest() for s in got] == want\n"
+        "from fluidframework_tpu_torch.service import LocalOrderingService\n"
+        "from fluidframework_tpu_torch.service.catchup import "
+        "CatchupService\n"
+        "from fluidframework_tpu_torch.testing import service_workload "
+        "as sw\n"
+        "service = LocalOrderingService()\n"
+        "ids = sw.build_catchup_corpus(service, 3, 16)\n"
+        "ids += sw.build_tree_catchup_corpus(service, 2, 16)\n"
+        "import random\n"
+        "sw.build_mixed_corpus(service, 2, random.Random(3), rounds=6)\n"
+        "svc = CatchupService(service, device='cpu')\n"
+        "res = svc.catch_up(upload=False)\n"
+        "assert svc.cpu_docs == 0 and svc.device_docs == len(res) == 7\n"
+        "assert all(res[d][0] == sw.catchup_oracle_digest(service, d)\n"
+        "           for d in res)\n"
         "assert not any(m.startswith(('jax', 'fluidframework_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

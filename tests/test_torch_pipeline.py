@@ -57,10 +57,23 @@ def test_port_oracle_matches_jax_oracle_on_fixture():
 
 
 def test_attribution_docs_raise_not_implemented():
-    doc = workload.synth_doc(0, 8)
-    doc.attribution = True
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mt.replay_mergetree_batch([doc], device="cpu")
+    """Attribution documents are served now (they raised before the port
+    had them): the pinned stream with the flag set folds to the JAX
+    package's and the attributed oracle's bytes, through both entries.
+    The name is the one the refusal test had; it is kept so that the
+    test stays the same test across the change, though it no longer
+    describes the check."""
+    ref_docs = bench_docs(6, 24)
+    for doc in ref_docs:
+        doc.attribution = True
+    ref = ref_mt.replay_mergetree_batch(ref_docs)
+    oracle = [ref_mt.oracle_fallback_summary(d).digest() for d in ref_docs]
+    assert [s.digest() for s in ref] == oracle
+    got = mt.replay_mergetree_batch(port_docs(ref_docs), device="cpu")
+    assert [s.digest() for s in got] == oracle
+    got = pipeline.pipelined_mergetree_replay(port_docs(ref_docs),
+                                              chunk_docs=4, device="cpu")
+    assert [s.digest() for s in got] == oracle
 
 
 def test_python_extraction_matches_native_bodies():
