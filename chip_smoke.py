@@ -103,7 +103,23 @@ port's libraries from the sources in the checkout, and runs in order:
    cold and a warm round equal to the forced container fold, K7 and K4
    once a round); S6 1,024 attribution documents whose window clamps
    their inserts, every summary equal to the container fold;
-12. times — each build of the fold kernel alone (CUDA events behind a
+12. the network ordering server (``server_phase``): the port's
+   ``OrderingServer`` on a thread, its catch-up service and streaming
+   fold on the card, reached over TCP by the port's own client.  R1 one
+   ``catchup`` RPC for S1's corpus (10,240 x 96, cold: wall, ops/s,
+   ``deviceDocs``, admission counters, the time inside the seam and
+   beyond it, a 256-document sample equal to the CPU container fold);
+   R2 the same RPC (the warm lane: no launch, no bytes); R3 live
+   ``Loader`` sessions over the mixed datastore typing over TCP, folded
+   by one RPC (K1, K5, K7, K4) and loaded fresh with nothing to replay;
+   R4 the streaming fold at the gates' defaults over the 10,240
+   documents (a forced ``stream_poll``, rounds of 8 committed ops each
+   folded by one ``stream_poll``, one more round traced for the device
+   busy share, a ``catchup`` within the cadence served by the stream
+   lane, one past it folded at the head); R5 the standalone server
+   (``python -m fluidframework_tpu_torch.service.server --device cuda
+   --dir ...``) in a subprocess, its document surviving a restart;
+13. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
    resident kernels, the two tree builds, the matrix fold at both shapes
@@ -118,9 +134,10 @@ port's libraries from the sources in the checkout, and runs in order:
 
 Each driven path (the one-batch entry, the state path, the large-S
 paths, the pipeline, each warm pass, each tree pass, the map and matrix
-entries, each service call) runs with every launch count set to 0 just
-before it and read just after; each row of the ``kernels`` line also
-carries its launches on every service call (``service_launches``).  One JSON object per phase goes to stdout.  Any
+entries, each service call, each server RPC) runs with every launch
+count set to 0 just before it and read just after; each row of the
+``kernels`` line also carries its launches on every service call
+(``service_launches``) and every server RPC (``server_launches``).  One JSON object per phase goes to stdout.  Any
 failure raises (non-zero exit, no result line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
@@ -210,8 +227,26 @@ SVC_ATTR_DOCS = 1024
 #: where the profiled S1 pass writes its trace (gitignored)
 SVC_TRACE_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
                              "service_trace")
+#: the server phase (``OrderingServer``, the deployed shape, over S1's
+#: corpus): R3's live documents (two writers each over TCP) and their
+#: edit rounds; R4's growth per stream round (the cadence of the
+#: ``Catchup.StreamCadence`` gate's default), its clean rounds before the
+#: profiled one, the stream lane's growth (within the cadence) and the
+#: documents grown past it; R5's ops typed into the spawned server
+SRV_LIVE_DOCS, SRV_LIVE_ROUNDS = 8, 48
+SRV_GROW_OPS, SRV_STREAM_ROUNDS = 8, 2
+SRV_LANE_OPS, SRV_PAST_DOCS = 2, 16
+SRV_R5_OPS = 96
+#: one RPC's bound, seconds (a cold fold of S1's corpus takes ~10 s)
+SRV_RPC_TIMEOUT = 600.0
+#: where the profiled stream round writes its trace, and R5's --dir
+#: (both gitignored)
+SRV_TRACE_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
+                             "server_trace")
+SRV_R5_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
+                          "server_r5")
 #: the launch counters of each row of the ``kernels`` line (the service
-#: paths' launches are summed over them)
+#: and server paths' launches are summed over them)
 ROW_COUNTS = {
     "mergetree_fold_smem": ("fold_smem",),
     "mergetree_fold_gmem": ("fold_gmem",),
@@ -1786,7 +1821,8 @@ def service_phase(dev, drive, launches, warm_passes):
     - S6: 1,024 attribution documents whose window clamps their inserts,
       every summary equal to the container fold, with key blobs.
 
-    Returns the list of the service paths."""
+    Returns the service paths and S1's corpus (its service, doc ids and
+    cold wall), which the server phase reuses."""
     import random
     import shutil
 
@@ -1920,6 +1956,9 @@ def service_phase(dev, drive, launches, warm_passes):
               sum(trace["seconds"].values()) / fold_s,
           "kernel_s_over_untraced_wall": kernel_s / wall1, **trace})
     check(kernel_s > 0, "the trace holds no CUDA kernel time")
+    # S1's corpus (still at its seeded summaries: every S1 call folded
+    # with upload=False) is the server phase's
+    s1 = {"service": service, "ids": ids, "wall_s": wall1}
     del prof, service, res1, res2, res_p
     torch.cuda.empty_cache()
 
@@ -2080,8 +2119,538 @@ def service_phase(dev, drive, launches, warm_passes):
           f"S6 {stats6}, {len(bad6)} mismatches, {keyed} keyed")
     check(launched("service_s6", "mergetree_fold_export_smem") >= 1,
           "S6 launched no fold+export")
-    return paths
+    return paths, s1
 
+
+def free_port() -> int:
+    import socket
+
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+def quiesce(factory, doc_id, containers, timeout=120.0):
+    """Drain each container until its ref_seq reaches the server's head
+    for ``doc_id`` (bounded); returns that head."""
+    storage = factory.resolve(doc_id).delta_storage
+    deadline = time.perf_counter() + timeout
+    while True:
+        head = storage.head()
+        for c in containers:
+            c.drain()
+        if all(c.runtime.ref_seq == head for c in containers) \
+                and storage.head() == head:
+            return head
+        if time.perf_counter() > deadline:
+            raise AssertionError(
+                f"server: {doc_id} clients at "
+                f"{[c.runtime.ref_seq for c in containers]}, head {head}")
+        time.sleep(0.005)
+
+
+class LiveWriter:
+    """A Loader container as ``drive_mixed_doc`` drives a runtime: edits
+    go through its datastores, ``drain`` flushes and applies over TCP."""
+
+    def __init__(self, container) -> None:
+        self.container = container
+
+    def get_datastore(self, name):
+        return self.container.runtime.get_datastore(name)
+
+    def drain(self):
+        return self.container.drain()
+
+
+def spawn_server(port, log_path, *args):
+    """``python -m fluidframework_tpu_torch.service.server`` (the normal
+    entry point) with its output in ``log_path``; waits, bounded, for its
+    listening line."""
+    log = open(log_path, "a")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.service.server",
+         "--port", str(port), *args], cwd=REPO, stdout=log,
+        stderr=subprocess.STDOUT)
+    log.close()
+    deadline = time.perf_counter() + 180
+    while time.perf_counter() < deadline:
+        with open(log_path) as f:
+            if "listening" in f.read():
+                return proc
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    stop_process(proc)
+    with open(log_path) as f:
+        tail = f.read()[-2000:]
+    raise AssertionError(f"server: the spawned server never listened: "
+                         f"{tail}")
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=20)
+
+
+def server_phase(dev, drive, launches, s1):
+    """Phase 12: the network ordering server on the card.  The port's
+    ``OrderingServer(service, device=dev)`` on a thread, reached over TCP
+    through the port's ``NetworkDocumentServiceFactory``, its lazy
+    ``CatchupService`` (and the streaming fold on top of it) on ``dev``.
+    Sub-phases, each RPC a driven path:
+
+    - R1: one ``catchup`` RPC for S1's corpus (10,240 x 96, cold: a new
+      server has its own catch-up service and tier 1): wall, ops/s,
+      ``deviceDocs`` / ``cpuDocs``, the admission counters, launches, the
+      bytes, the time inside the seam's ``catch_up`` and the RPC's cost
+      beyond it, and a 256-document sample equal to the CPU container
+      fold;
+    - R2: the same RPC again: the warm lane, no launch, no bytes;
+    - R3: live ``Loader`` sessions (two writers a document, the mixed
+      datastore: string, map, matrix, tree, counter) typing over TCP,
+      quiesced by head; a ``catchup`` RPC folds them (K1, K5, K7, K4 each
+      launched); a fresh ``Loader`` replays nothing and sees the
+      writers' summary;
+    - R4: the streaming fold at the gates' defaults over S1's corpus:
+      ``note_doc`` for every document, a forced ``stream_poll``, then
+      rounds of ``SRV_GROW_OPS`` committed ops a document (through the
+      documents' endpoints) and a ``stream_poll`` each: wall, the poll's
+      counters, launches, bytes; one more round under the profiler for
+      the device busy share; a ``catchup`` RPC within the cadence (the
+      stream lane: no launch, the published ref_seqs) and one for
+      documents grown past it (the fold lane, at the head); every
+      published handle read back, a sample equal to the container fold;
+    - R5: the normal entry point in a subprocess (``--device`` of this
+      run, ``--dir`` under the gitignored build/): a port client creates
+      a document, types, sends ``catchup`` (``deviceDocs == 1``); the
+      server restarts on the same ``--dir`` and the document's head and
+      latest summary survive.
+
+    Returns the driven paths."""
+    import random
+    import shutil
+
+    import torch
+
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        NetworkDocumentServiceFactory)
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.protocol.messages import (MessageType,
+                                                            RawOperation)
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.service.server import OrderingServer
+    from fluidframework_tpu_torch.testing import service_workload as sw
+    from fluidframework_tpu_torch.utils.telemetry import (
+        CollectingLogger, ConfigProvider, MonitoringContext)
+
+    service, ids = s1["service"], s1["ids"]
+    paths = []
+    n_ops = len(ids) * N_OPS
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"server: {what}")
+
+    def launched(path, *rows):
+        return sum(launches[path][k] for r in rows for k in ROW_COUNTS[r])
+
+    def no_launch(path):
+        check(not any(launches[path].values()),
+              f"{path} launched: {launches[path]}")
+
+    def driven(path, fn):
+        """A driven path: its result, wall, and what it added to the
+        seam's stage dict."""
+        stage0 = dict(catchup.pipeline_stage)
+        out, wall = drive(path, fn)
+        paths.append(path)
+        stage = {k: v - stage0.get(k, 0)
+                 for k, v in catchup.pipeline_stage.items()}
+        return out, wall, stage
+
+    def rpc(path, factory, method, params):
+        """One RPC as a driven path."""
+        return driven(path, lambda: factory._rpc.request(
+            method, params, timeout=SRV_RPC_TIMEOUT))
+
+    def moved(stage):
+        return [stage.get("h2d_bytes", 0), stage.get("d2h_bytes", 0)]
+
+    def chained(doc_id, handle, seq, to_seq):
+        """Container fold from a checked summary (``handle`` at ``seq``)
+        through the log up to ``to_seq``: the oracle once truncation has
+        dropped the log's prefix."""
+        rt = ContainerRuntime()
+        rt.load(service.storage.read(handle))
+        for m in service.oplog.get(doc_id, from_seq=seq, to_seq=to_seq):
+            rt.process(m)
+        return rt.summarize().digest()
+
+    grower_seq = {}
+
+    def grow(doc_id, n):
+        """``n`` committed inserts through the document's endpoint (its
+        sequencer's commit watcher feeds the streaming fold)."""
+        ep = service.endpoint(doc_id)
+        if doc_id not in grower_seq:
+            ep.connect("grower")
+            grower_seq[doc_id] = 0
+        for _ in range(n):
+            cseq = grower_seq[doc_id] = grower_seq[doc_id] + 1
+            ep.submit(RawOperation(
+                client_id="grower", client_seq=cseq,
+                ref_seq=service.oplog.head(doc_id), type=MessageType.OP,
+                contents={"type": "groupedBatch", "ops": [
+                    {"ds": "ds", "channel": "text", "clientSeq": cseq,
+                     "contents": {"kind": "insert", "pos": 0,
+                                  "text": "g"}}]}))
+
+    picked = {0, len(ids) // 2, len(ids) - 1}
+    for i in range(0, len(ids), max(1, len(ids) // ORACLE_SAMPLE)):
+        if len(picked) == ORACLE_SAMPLE:
+            break
+        picked.add(i)
+    sample = [ids[i] for i in sorted(picked)]
+    t = time.perf_counter()
+    want1 = {d: sw.catchup_oracle_digest(service, d) for d in sample}
+    oracle1_s = time.perf_counter() - t
+
+    log = CollectingLogger()
+    server = OrderingServer(service, device=dev,
+                            mc=MonitoringContext(log, ConfigProvider({})))
+    thread = server.start_in_thread()
+    factories = []
+
+    def connect():
+        f = NetworkDocumentServiceFactory(port=server.port,
+                                          timeout=SRV_RPC_TIMEOUT)
+        factories.append(f)
+        return f
+
+    try:
+        factory = connect()
+        catchup = server._ensure_catchup()
+
+        # -- R1: the fold lane at full width ---------------------------------
+        seam = {"s": 0.0}
+        real_catch_up = catchup.catch_up
+
+        def timed_catch_up(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real_catch_up(*a, **k)
+            finally:
+                seam["s"] += time.perf_counter() - t0
+
+        catchup.catch_up = timed_catch_up
+        try:
+            out1, wall1, stage1 = rpc("server_r1_fold", factory, "catchup",
+                                      {"docs": ids})
+        finally:
+            del catchup.catch_up
+        r1 = {d: tuple(v) for d, v in out1["docs"].items()}
+        bad1 = [d for d in sample if r1[d][0] != want1[d]]
+        admission1 = server.admission.snapshot()
+        emit({"phase": "server_r1", "docs": len(ids), "ops": n_ops,
+              "wall_s": wall1, "ops_per_s": n_ops / wall1,
+              "lane": out1["lane"], "deviceDocs": out1["deviceDocs"],
+              "cpuDocs": out1["cpuDocs"],
+              "hostChannels": out1["hostChannels"],
+              "fallbackChannels": out1["fallbackChannels"],
+              "seam_catch_up_s": seam["s"],
+              "beyond_seam_s": wall1 - seam["s"],
+              "in_proc_s1_wall_s": s1["wall_s"],
+              "over_in_proc_s1_s": wall1 - s1["wall_s"],
+              "admission": admission1,
+              "admission_control": server.admission_control.snapshot(),
+              "h2d_d2h_bytes": moved(stage1), "stage": stage1,
+              "launches": launches["server_r1_fold"],
+              "oracle_sample": len(sample), "oracle_s": oracle1_s,
+              "oracle_mismatches": bad1[:8]})
+        check(out1["lane"] == "fold" and len(r1) == len(ids)
+              and out1["skipped"] == [], f"R1 answer {out1['lane']}")
+        check(out1["deviceDocs"] == len(ids) and out1["cpuDocs"] == 0,
+              f"R1 deviceDocs {out1['deviceDocs']} cpuDocs "
+              f"{out1['cpuDocs']}")
+        check(not bad1, f"R1 oracle {bad1[:8]}")
+        check(all(r1[d][1] == service.oplog.head(d) for d in sample),
+              "R1 answered below the head")
+        check((admission1["catchup.requests"], admission1["catchup.admitted"],
+               admission1["catchup.shed"]) == (1, 1, 0),
+              f"R1 admission {admission1}")
+        check(launched("server_r1_fold", "mergetree_fold_export_smem") >= 1,
+              f"R1 launched no fold+export: {launches['server_r1_fold']}")
+
+        # -- R2: the warm lane -----------------------------------------------
+        out2, wall2, stage2 = rpc("server_r2_warm", factory, "catchup",
+                                  {"docs": ids})
+        emit({"phase": "server_r2", "wall_s": wall2, "lane": out2["lane"],
+              "h2d_d2h_bytes": moved(stage2),
+              "launches": launches["server_r2_warm"],
+              "admission": server.admission.snapshot()})
+        check(out2["lane"] == "warm" and out2["docs"] == out1["docs"],
+              f"R2 lane {out2['lane']}")
+        check(moved(stage2) == [0, 0], f"R2 moved {moved(stage2)}")
+        no_launch("server_r2_warm")
+
+        # -- R3: live clients over TCP ---------------------------------------
+        def build(rt):
+            ds = rt.create_datastore("ds")
+            for type_name, channel_id in sw.MIXED_CHANNELS:
+                ds.create_channel(type_name, channel_id)
+
+        live = [f"live{i}" for i in range(SRV_LIVE_DOCS)]
+        rng = random.Random("server-live")
+        writers = {}
+        t = time.perf_counter()
+        for doc_id in live:
+            writers[doc_id] = [Loader(connect()).create(doc_id, "alice",
+                                                        build)]
+            writers[doc_id].append(Loader(connect()).resolve(doc_id, "bob"))
+        for doc_id, pair in writers.items():
+            sw.drive_mixed_doc([LiveWriter(c) for c in pair], rng,
+                               rounds=SRV_LIVE_ROUNDS)
+        heads3 = {d: quiesce(factory, d, pair) for d, pair in writers.items()}
+        typing_s = time.perf_counter() - t
+        want3 = {d: [c.runtime.summarize().digest() for c in pair]
+                 for d, pair in writers.items()}
+        out3, wall3, stage3 = rpc("server_r3_live", factory, "catchup",
+                                  {"docs": live})
+        fresh3 = {}
+        for doc_id in live:
+            c = Loader(connect()).resolve(doc_id)
+            fresh3[doc_id] = (c.catchup_ops, c.runtime.summarize().digest())
+            c.close()
+        for pair in writers.values():
+            for c in pair:
+                c.close()
+        emit({"phase": "server_r3", "docs": len(live),
+              "rounds": SRV_LIVE_ROUNDS, "heads": heads3,
+              "typing_s": typing_s, "wall_s": wall3, "lane": out3["lane"],
+              "deviceDocs": out3["deviceDocs"], "cpuDocs": out3["cpuDocs"],
+              "hostChannels": out3["hostChannels"],
+              "fallbackChannels": out3["fallbackChannels"],
+              "h2d_d2h_bytes": moved(stage3),
+              "launches": launches["server_r3_live"],
+              "fresh_catchup_ops": {d: v[0] for d, v in fresh3.items()}})
+        check(out3["lane"] == "fold" and out3["deviceDocs"] == len(live)
+              and out3["cpuDocs"] == 0, f"R3 answer {out3['lane']} "
+              f"{out3['deviceDocs']} {out3['cpuDocs']}")
+        for doc_id in live:
+            check(want3[doc_id][0] == want3[doc_id][1],
+                  f"R3 {doc_id}: the writers disagree")
+            check(out3["docs"][doc_id] == [want3[doc_id][0], heads3[doc_id]],
+                  f"R3 {doc_id}: catch-up {out3['docs'][doc_id]}")
+            check(fresh3[doc_id] == (0, want3[doc_id][0]),
+                  f"R3 {doc_id}: fresh load {fresh3[doc_id]}")
+        for row in ("mergetree_fold_export_smem", "tree_fold_digest",
+                    "map_lww", "matrix_fold"):
+            check(launched("server_r3_live", row) >= 1,
+                  f"R3 launched no {row}: {launches['server_r3_live']}")
+
+        # -- R4: the streaming fold at full width ----------------------------
+        sf = server.enable_streaming()
+        check((sf.cadence_ops, sf.retention_floor) == (8, 64),
+              f"stream gates {sf.cadence_ops} {sf.retention_floor}")
+        for doc_id in ids:
+            sf.note_doc(doc_id)
+        rounds = {}
+
+        def stream_round(name, grow_ops, force=False, rpc_poll=True):
+            t0 = time.perf_counter()
+            for doc_id in ids:
+                grow(doc_id, grow_ops)
+            grow_s = time.perf_counter() - t0
+            before = sf.stats()
+            if rpc_poll:
+                out, wall, stage = rpc(f"server_r4_{name}", factory,
+                                       "stream_poll", {"force": force})
+            else:
+                out, wall, stage = driven(f"server_r4_{name}", lambda: {
+                    "folded": sf.poll(force=force)})
+            after = sf.stats()
+            rec = {"grow_ops": grow_ops, "grow_s": grow_s, "wall_s": wall,
+                   "docs_per_s": len(out["folded"]) / wall,
+                   "answered_docs": len(out["folded"]),
+                   **{k: after[k] - before[k] for k in (
+                       "docs_folded", "ops_folded", "publishes",
+                       "truncations", "truncated_msgs",
+                       "oplog_bytes_reclaimed")},
+                   "h2d_d2h_bytes": moved(stage), "stage": stage,
+                   "launches": launches[f"server_r4_{name}"],
+                   "device_cache": catchup.device_cache.stats()
+                   if catchup.device_cache is not None else None}
+            rounds[name] = rec
+            check(rec["docs_folded"] == len(ids)
+                  and rec["publishes"] == len(ids),
+                  f"R4 {name}: folded {rec['docs_folded']}, published "
+                  f"{rec['publishes']}")
+            return out
+
+        stream_round("forced", 0, force=True)
+        for r in range(SRV_STREAM_ROUNDS):
+            stream_round(f"round{r + 1}", SRV_GROW_OPS)
+            check(launched(f"server_r4_round{r + 1}",
+                           "mergetree_fold_export_smem") >= 1,
+                  f"R4 round {r + 1} launched no fold+export")
+        # one more round under the profiler (the Catchup.ProfileDir
+        # gate, read at each fold): the device busy share.  Its poll runs
+        # here, on the thread that started the profiler in the service
+        # phase (the RPC would poll on the server's event-loop thread),
+        # with the server idle.
+        shutil.rmtree(SRV_TRACE_DIR, ignore_errors=True)
+        os.environ["FLUID_TPU_CATCHUP_PROFILEDIR"] = SRV_TRACE_DIR
+        try:
+            stream_round("profiled", SRV_GROW_OPS, rpc_poll=False)
+        finally:
+            del os.environ["FLUID_TPU_CATCHUP_PROFILEDIR"]
+        fold_s = [e["durationMs"] for e in log.events
+                  if e["eventName"] == "catchup:bulkCatchup_end"][-1] / 1e3
+        trace = trace_device_seconds(SRV_TRACE_DIR)
+        busy = {"traced_wall_s": rounds["profiled"]["wall_s"],
+                "traced_fold_s": fold_s,
+                "device_busy_share": trace["seconds"]["kernel"] / fold_s,
+                "device_busy_share_with_copies":
+                    sum(trace["seconds"].values()) / fold_s, **trace}
+        check(trace["seconds"]["kernel"] > 0,
+              "the stream round's trace holds no CUDA kernel time")
+
+        # a catch-up within the cadence: the stream lane
+        epoch = service.storage.epoch
+        for doc_id in ids:
+            grow(doc_id, SRV_LANE_OPS)
+        published = {d: sf.head_index.get(d, epoch) for d in ids}
+        out5, wall5, stage5 = rpc("server_r4_stream_lane", factory,
+                                  "catchup", {"docs": ids})
+        lane_ok = sum(tuple(out5["docs"][d]) == published[d] for d in ids)
+        # documents grown past the cadence: the fold lane, at the head
+        past = ids[::max(1, len(ids) // SRV_PAST_DOCS)][:SRV_PAST_DOCS]
+        for doc_id in past:
+            grow(doc_id, SRV_GROW_OPS)
+        out6, wall6, stage6 = rpc("server_r4_past_cadence", factory,
+                                  "catchup", {"docs": past})
+        unreadable = [d for d in ids
+                      if service.storage.read(published[d][0]) is None]
+        t = time.perf_counter()
+        bad4 = [d for d in sample if chained(
+            d, *r1[d], published[d][1]) != published[d][0]]
+        bad4 += [d for d in past if chained(
+            d, *r1[d], service.oplog.head(d)) != out6["docs"][d][0]]
+        oracle4_s = time.perf_counter() - t
+        emit({"phase": "server_r4", "docs": len(ids),
+              "cadence": sf.cadence_ops, "retention": sf.retention_floor,
+              "rounds": rounds, "busy": busy,
+              "stream_lane": {"wall_s": wall5, "lane": out5["lane"],
+                              "stream_docs": len(out5["stream"]),
+                              "at_published": lane_ok,
+                              "h2d_d2h_bytes": moved(stage5),
+                              "launches":
+                                  launches["server_r4_stream_lane"]},
+              "past_cadence": {"docs": len(past), "wall_s": wall6,
+                               "lane": out6["lane"],
+                               "deviceDocs": out6["deviceDocs"],
+                               "h2d_d2h_bytes": moved(stage6),
+                               "launches":
+                                   launches["server_r4_past_cadence"]},
+              "stats": sf.stats(), "admission": server.admission.snapshot(),
+              "floor_sample": {d: service.oplog.floor(d) for d in ids[:4]},
+              "unreadable": len(unreadable), "oracle_docs":
+                  len(sample) + len(past), "oracle_s": oracle4_s,
+              "oracle_mismatches": bad4[:8]})
+        check(out5["lane"] == "stream" and len(out5["stream"]) == len(ids)
+              and lane_ok == len(ids),
+              f"R4 stream lane {out5['lane']}: {len(out5['stream'])} "
+              f"stream docs, {lane_ok} at the published ref_seq")
+        no_launch("server_r4_stream_lane")
+        check(out6["lane"] == "fold" and all(
+            out6["docs"][d][1] == service.oplog.head(d) for d in past),
+            f"R4 past the cadence: lane {out6['lane']}")
+        check(launched("server_r4_past_cadence",
+                       "mergetree_fold_export_smem") >= 1,
+              "R4 past the cadence launched no fold+export")
+        check(not unreadable and not bad4,
+              f"R4 unreadable {unreadable[:8]}, oracle {bad4[:8]}")
+    finally:
+        for f in factories:
+            f.close()
+        server.loop.call_soon_threadsafe(server._server.close)
+        thread.join(timeout=60)
+    del server, catchup
+    torch.cuda.empty_cache()
+
+    # -- R5: the normal entry point ------------------------------------------
+    shutil.rmtree(SRV_R5_DIR, ignore_errors=True)
+    os.makedirs(SRV_R5_DIR)
+    store = os.path.join(SRV_R5_DIR, "store")
+    port = free_port()
+    args = ("--device", str(dev), "--dir", store)
+    t = time.perf_counter()
+    proc = spawn_server(port, os.path.join(SRV_R5_DIR, "start.log"), *args)
+    start_s = time.perf_counter() - t
+    factory = NetworkDocumentServiceFactory(port=port,
+                                            timeout=SRV_RPC_TIMEOUT)
+    try:
+        c = Loader(factory).create(
+            "r5", "alice", lambda rt: rt.create_datastore("ds")
+            .create_channel("sequence-tpu", "text"))
+        text = c.runtime.get_datastore("ds").get_channel("text")
+        for i in range(SRV_R5_OPS):
+            text.insert_text(len(text.text), "ab"[i % 2])
+            c.drain()
+        head5 = quiesce(factory, "r5", [c])
+        t = time.perf_counter()
+        out7 = factory._rpc.request("catchup", {"docs": ["r5"]},
+                                    timeout=SRV_RPC_TIMEOUT)
+        rpc7_s = time.perf_counter() - t
+        typed = text.text
+        c.close()  # its LEAVE lands past the folded head
+        head5_closed = factory._rpc.request("head", {"doc": "r5"})
+    finally:
+        factory.close()
+        stop_process(proc)
+    t = time.perf_counter()
+    proc = spawn_server(port, os.path.join(SRV_R5_DIR, "restart.log"),
+                        *args)
+    restart_s = time.perf_counter() - t
+    factory = NetworkDocumentServiceFactory(port=port,
+                                            timeout=SRV_RPC_TIMEOUT)
+    try:
+        head_after = factory._rpc.request("head", {"doc": "r5"})
+        latest = factory._rpc.request("latest_summary", {"doc": "r5"})
+        fresh = Loader(factory).resolve("r5")
+        fresh_text = fresh.runtime.get_datastore("ds").get_channel(
+            "text").text
+        fresh.close()
+    finally:
+        factory.close()
+        stop_process(proc)
+    emit({"phase": "server_r5", "args": list(args), "ops": SRV_R5_OPS,
+          "start_s": start_s, "restart_s": restart_s, "catchup_s": rpc7_s,
+          "lane": out7["lane"], "deviceDocs": out7["deviceDocs"],
+          "cpuDocs": out7["cpuDocs"], "head": head5,
+          "head_after_close": head5_closed, "head_after_restart": head_after,
+          "summary_survived": [latest["handle"], latest["ref_seq"]]
+          == out7["docs"]["r5"],
+          "launches": "not counted: the kernels ran in the spawned "
+                      "server's process"})
+    check(out7["deviceDocs"] == 1 and out7["cpuDocs"] == 0
+          and out7["docs"]["r5"][1] == head5,
+          f"R5 catch-up {out7['deviceDocs']} {out7['docs']}")
+    check(head_after == head5_closed, f"R5 head {head_after} after the "
+          f"restart, {head5_closed} before")
+    check([latest["handle"], latest["ref_seq"]] == out7["docs"]["r5"],
+          f"R5 latest summary {latest.get('handle')} "
+          f"{latest.get('ref_seq')}")
+    check(fresh_text == typed, "R5 text after the restart")
+    return paths
 
 
 def main() -> int:
@@ -2424,9 +2993,13 @@ def main() -> int:
     k4_rows = matrix_phase(dev, drive, launches, card)
 
     # -- 11. the catch-up service seam -------------------------------------
-    service_paths = service_phase(dev, drive, launches, warm_passes)
+    service_paths, s1 = service_phase(dev, drive, launches, warm_passes)
 
-    # -- 12. times ---------------------------------------------------------
+    # -- 12. the network ordering server -----------------------------------
+    server_paths = server_phase(dev, drive, launches, s1)
+    del s1
+
+    # -- 13. times ---------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -2521,6 +3094,9 @@ def main() -> int:
         r["service_launches"] = {
             path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
             for path in service_paths}
+        r["server_launches"] = {
+            path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
+            for path in server_paths}
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,7 +14,13 @@ Layout:
   (fallback documents, the service's CPU fold and byte-identity checks);
 - ``service/`` — the catch-up service (``CatchupService``: one call
   routes every channel family to its entry on the card) with its cache
-  tiers and the ordering service and op log it reads;
+  tiers and the ordering service and op log it reads; the TCP ordering
+  server (``server``, ``python -m fluidframework_tpu_torch.service.server``)
+  whose ``catchup`` RPC and streaming fold (``streamfold``) run on the
+  card, with the broadcaster, retry policy and host-side orderer shards;
+- ``drivers/``, ``loader/`` — copies of the client side (the network
+  driver, ``Loader`` / ``Container`` / ``DeltaManager``) that reaches
+  the server over TCP;
 - ``ops/`` — packing (``native_pack`` with ``csrc/oppack.cpp``), the
   merge-tree fold and export (``mergetree_kernel``), the hand-written
   Hopper fold kernel (``fold_cuda`` with ``csrc/mergetree_fold.cu``), the

@@ -1,5 +1,5 @@
-"""The ordering-service slice the catch-up seam needs (copies of the JAX
-package's modules):
+"""The ordering-service slice (copies of the JAX package's modules, with
+the catch-up fold on the card):
 
 - :mod:`oplog`    — durable per-document op log;
 - :mod:`scribe`   — summary validation + ack/nack;
@@ -7,14 +7,31 @@ package's modules):
 - :mod:`catchup`  — the bulk catch-up service that routes every kernel
   family through the port's replay entry points on the card;
 - :mod:`catchup_cache` — its cache tiers 1 (results, single-flight) and
-  0 (digest-gated delta download).
+  0 (digest-gated delta download), and the streaming fold's
+  published-summary index;
+- :mod:`streamfold` — the sequencer-attached streaming fold (commit-driven
+  incremental summaries, summary-anchored op-log truncation);
+- :mod:`sharding` — document-partitioned orderer shards on the host
+  (rendezvous routing, epoch-fenced failover) behind the same surface;
+- :mod:`broadcaster` — serialize-once broadcast fan-out with laggard
+  demotion;
+- :mod:`retry`    — the client-side retry policy;
+- :mod:`server`   — the TCP ordering server (``python -m
+  fluidframework_tpu_torch.service.server``), whose ``catchup`` RPC and
+  streaming fold run on the server's device.
 
-The broadcaster, retry policy, sharding and streaming fold are not ported
-yet (ROADMAP queue 1 item 5).
+The out-of-process tier (shard hosts, the front door) is not ported yet
+(ROADMAP.md).
 """
 
+from .broadcaster import Broadcaster
 from .oplog import OpLog
 from .orderer import DocumentOrderer, LocalOrderingService
+from .retry import RetryPolicy
 from .scribe import Scribe
+from .sharding import ShardedOrderingService, ShardRouter
 
-__all__ = ["OpLog", "DocumentOrderer", "LocalOrderingService", "Scribe"]
+__all__ = [
+    "Broadcaster", "OpLog", "DocumentOrderer", "LocalOrderingService",
+    "RetryPolicy", "Scribe", "ShardRouter", "ShardedOrderingService",
+]

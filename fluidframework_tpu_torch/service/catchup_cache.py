@@ -18,8 +18,9 @@ asks the fold for a per-document state digest, fetches only that
 whose digest changed; unchanged documents serve their cached summaries
 byte-identically.
 
-The streaming fold's ``StreamHeadIndex`` is not ported yet (ROADMAP
-queue 1 item 5).
+The streaming fold's ``StreamHeadIndex``: per document, the newest
+summary the streaming fold has published, ``(handle, ref_seq)`` pinned to
+a storage epoch; lag is measured in sequence numbers.
 """
 
 from __future__ import annotations
@@ -496,3 +497,106 @@ class DeltaExportCache:
                 self._bytes -= dropped.nbytes
                 self.counters.bump("invalidations")
         return len(stale)
+
+
+# ---------------------------------------------------------------------------
+# Streaming-head publication index
+# ---------------------------------------------------------------------------
+
+
+class StreamHeadIndex:
+    """The streaming fold's published-summary index: per document, the
+    NEWEST summary the streaming fold has durably published — ``(handle,
+    ref_seq)``, pinned to a storage epoch.  Unlike the byte-bounded
+    tiers, this is a tiny unbounded map (one tuple per live document):
+    its job is bookkeeping, not caching — the server's streaming-head
+    serve lane and the truncation cut both read it, and the lag gates
+    (``stream_lag_max``) are computed against it.
+
+    All mutation under one lock; no wall-clock anywhere (lag is measured
+    in SEQUENCE NUMBERS — head seq minus published ref_seq — so replay
+    runs report identical lag).  ``publish`` is monotone per document
+    within an epoch: a stale ref_seq (an out-of-order worker) never
+    regresses the index.  Counters: ``publishes`` (accepted),
+    ``regressions`` (stale publishes ignored), ``invalidations``
+    (epoch drops)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._entries: Dict[str, Tuple[str, int]] = {}  # guarded-by: _lock
+        self._epoch: Optional[str] = None  # guarded-by: _lock
+        self._lag_max = 0  # guarded-by: _lock (high-water, seqs)
+        self.counters = CounterSet(
+            "publishes", "regressions", "invalidations",
+        )  # guarded-by: _lock
+
+    def publish(self, doc_id: str, handle: str, ref_seq: int,
+                epoch: str) -> bool:
+        """Record a durably published summary.  A first publish in a new
+        epoch sweeps the old generation (same one-live-store contract as
+        the cache tiers).  Returns False for a non-advancing ref_seq."""
+        with self._lock:
+            if epoch != self._epoch:
+                if self._entries:
+                    self.counters.bump("invalidations", len(self._entries))
+                    self._entries.clear()
+                self._epoch = epoch
+                self._lag_max = 0
+            old = self._entries.get(doc_id)
+            if old is not None and old[1] >= ref_seq:
+                self.counters.bump("regressions")
+                return False
+            self._entries[doc_id] = (handle, ref_seq)
+            self.counters.bump("publishes")
+            return True
+
+    def get(self, doc_id: str, epoch: str) -> Optional[Tuple[str, int]]:
+        """The published ``(handle, ref_seq)`` for ``doc_id`` in the
+        CURRENT epoch, else None (a dead generation is never served)."""
+        with self._lock:
+            if epoch != self._epoch:
+                return None
+            return self._entries.get(doc_id)
+
+    def published_ref_seq(self, doc_id: str) -> int:
+        """The newest published ref_seq (0 when never published) — the
+        truncation cut's summary anchor."""
+        with self._lock:
+            entry = self._entries.get(doc_id)
+            return entry[1] if entry is not None else 0
+
+    def observe_lag(self, doc_id: str, head_seq: int) -> int:
+        """Record (and return) this document's current lag in sequence
+        numbers: committed head minus newest published ref_seq.  Feeds
+        the ``stream_lag_max`` high-water gate."""
+        with self._lock:
+            entry = self._entries.get(doc_id)
+            lag = max(0, int(head_seq) - (entry[1] if entry else 0))
+            if lag > self._lag_max:
+                self._lag_max = lag
+            return lag
+
+    def invalidate_epoch(self, current_epoch: str) -> int:
+        """Eager sweep on a storage generation change (parity with the
+        cache tiers' contract)."""
+        with self._lock:
+            if current_epoch == self._epoch:
+                return 0
+            dropped = len(self._entries)
+            self._entries.clear()
+            self._epoch = current_epoch
+            self._lag_max = 0
+            if dropped:
+                self.counters.bump("invalidations", dropped)
+        return dropped
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            out = self.counters.snapshot()
+            out["entries"] = len(self._entries)
+            out["lag_max"] = self._lag_max
+        return out

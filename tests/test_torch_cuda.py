@@ -1120,3 +1120,49 @@ def test_catchup_service_on_card_equals_cpu(cuda, corpus):
             assert p_stats["hostChannels"] > 0
         for doc_id, (handle, _seq) in got.items():
             assert handle == sw.catchup_oracle_digest(service, doc_id)
+
+
+def test_server_catchup_rpc_on_card_equals_cpu_fold(cuda):
+    """The port's TCP server on the card: an in-thread ``OrderingServer``
+    with ``device="cuda"``, one ``catchup`` RPC over TCP through the
+    port's network driver for a mixed corpus and a string corpus, every
+    kernel family launched, every answer equal to the CPU container
+    fold."""
+    import random
+
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        NetworkDocumentServiceFactory)
+    from fluidframework_tpu_torch.ops import (map_lww_cuda,
+                                              matrix_fold_cuda,
+                                              tree_fold_cuda)
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.server import OrderingServer
+    from fluidframework_tpu_torch.testing import service_workload as sw
+
+    service = LocalOrderingService()
+    sw.build_mixed_corpus(service, 4, random.Random("server"))
+    sw.build_catchup_corpus(service, 16, 48)
+    want = {d: sw.catchup_oracle_digest(service, d)
+            for d in service.doc_ids()}
+    server = OrderingServer(service, device=cuda)
+    thread = server.start_in_thread()
+    factory = NetworkDocumentServiceFactory(port=server.port)
+    try:
+        for reset in (fold_cuda.reset_launches, map_lww_cuda.reset_launches,
+                      matrix_fold_cuda.reset_launches,
+                      tree_fold_cuda.reset_launches):
+            reset()
+        out = factory._rpc.request("catchup", {})
+        assert out["lane"] == "fold"
+        assert out["deviceDocs"] == len(want) and out["cpuDocs"] == 0
+        assert fold_cuda.fold_export.launches >= 1
+        assert map_lww_cuda.lww.launches == 1
+        assert matrix_fold_cuda.fold_resolving.launches == 1
+        assert tree_fold_cuda.fold_digest.launches >= 1
+        for doc_id, (handle, seq) in out["docs"].items():
+            assert seq == service.oplog.head(doc_id)
+            assert service.storage.read(handle).digest() == want[doc_id]
+    finally:
+        factory.close()
+        server.loop.call_soon_threadsafe(server._server.close)
+        thread.join(timeout=10)

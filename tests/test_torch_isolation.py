@@ -67,6 +67,20 @@ def test_port_replays_with_jax_and_the_jax_package_blocked():
         "assert svc.cpu_docs == 0 and svc.device_docs == len(res) == 7\n"
         "assert all(res[d][0] == sw.catchup_oracle_digest(service, d)\n"
         "           for d in res)\n"
+        "from fluidframework_tpu_torch.drivers.network_driver import (\n"
+        "    NetworkDocumentServiceFactory)\n"
+        "from fluidframework_tpu_torch.service.server import "
+        "OrderingServer\n"
+        "server = OrderingServer(service, device='cpu')\n"
+        "thread = server.start_in_thread()\n"
+        "factory = NetworkDocumentServiceFactory(port=server.port)\n"
+        "out = factory._rpc.request('catchup', {})\n"
+        "factory.close()\n"
+        "server.loop.call_soon_threadsafe(server._server.close)\n"
+        "thread.join(timeout=10)\n"
+        "assert out['lane'] == 'fold' and out['deviceDocs'] == 7\n"
+        "assert {d: s for d, (_h, s) in out['docs'].items()} == \\\n"
+        "    {d: service.oplog.head(d) for d in res}\n"
         "assert not any(m.startswith(('jax', 'fluidframework_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
