@@ -119,7 +119,22 @@ port's libraries from the sources in the checkout, and runs in order:
    lane, one past it folded at the head); R5 the standalone server
    (``python -m fluidframework_tpu_torch.service.server --device cuda
    --dir ...``) in a subprocess, its document surviving a restart;
-13. times — each build of the fold kernel alone (CUDA events behind a
+13. the doc-sharded fold (``mesh_phase``): ``parallel/shard.py`` on
+   device lists that name the card twice and three times (the second
+   pads): M1 the pinned workload, M2 S4's 2,048 trees, M3 / M4 the map
+   and matrix main batches, each equal to its one-device entry and
+   launching its kernel once a part; M5 phase 7's windows through the
+   doc-sharded tiers (bytes beside phase 7's, K6 once a part on the grown
+   pass); M6 ``CatchupService(mesh=...)`` over S1's corpus, equal to S1;
+14. the out-of-process tier (``frontdoor_phase``): a ``FrontDoor`` over
+   two shard processes on the card, heartbeats on: F1 1,024 documents
+   written through the door and one ``catchup`` RPC a shard (``cpuDocs``
+   0, equal to this process's fold of the logs read back), F3 eight
+   documents live-migrated byte-identically, F2 a shard SIGKILLed
+   mid-traffic then a catch-up on the new owner, F4 the per-shard
+   ``stats`` RPC; shard start times, RSS and each step's launches in the
+   shard processes;
+15. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
    resident kernels, the two tree builds, the matrix fold at both shapes
@@ -134,11 +149,14 @@ port's libraries from the sources in the checkout, and runs in order:
 
 Each driven path (the one-batch entry, the state path, the large-S
 paths, the pipeline, each warm pass, each tree pass, the map and matrix
-entries, each service call, each server RPC) runs with every launch
-count set to 0 just before it and read just after; each row of the
-``kernels`` line also carries its launches on every service call
-(``service_launches``) and every server RPC (``server_launches``).  One JSON object per phase goes to stdout.  Any
-failure raises (non-zero exit, no result line).  The last line is
+entries, each service call, each server RPC, each mesh path) runs with
+every launch count set to 0 just before it and read just after; each
+row of the ``kernels`` line also carries its launches on every service
+call (``service_launches``), every server RPC (``server_launches``),
+every mesh path (``mesh_launches``) and every front-door step, counted
+in the shard processes (``frontdoor_launches``).  One JSON object per
+phase goes to stdout.  Any failure raises (non-zero exit, no result
+line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
 """
@@ -245,6 +263,20 @@ SRV_TRACE_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
                              "server_trace")
 SRV_R5_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
                           "server_r5")
+#: the mesh phase: device lists that name the one card twice and three
+#: times (the second pads every batch), its tree corpus (S4's streams:
+#: ``synth_tree_messages``) and the tree oracle sample (every shape)
+MESH_LISTS = {"x2": ["cuda:0", "cuda:0"], "x3": ["cuda:0"] * 3}
+MESH_TREE_DOCS, MESH_TREE_EDITS, MESH_TREE_SAMPLE = 2048, 48, 32
+#: the frontdoor phase: shard processes, documents written through the
+#: door (S1's streams), the ops each grows by in F2, the documents F3
+#: migrates, the heartbeat interval, one RPC's bound, the container-fold
+#: sample, and where the deployment directory goes (gitignored)
+FD_SHARDS, FD_DOCS, FD_GROW_OPS, FD_MIGRATE = 2, 1024, 16, 8
+FD_HEARTBEAT, FD_RPC_TIMEOUT, FD_ORACLE_SAMPLE = 1.0, 600.0, 64
+FD_BATCH_DOCS = 64
+FD_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
+                      "frontdoor")
 #: the launch counters of each row of the ``kernels`` line (the service
 #: and server paths' launches are summed over them)
 ROW_COUNTS = {
@@ -297,6 +329,11 @@ ANNOTATE_OPS_PER_SLOT_PER_KEY = 2
 SPIN_CYCLES = 2_000_000
 
 _T0 = time.perf_counter()
+#: each later phase's main batch, its one-device summaries' digests (and
+#: stats), kept for the ``mesh`` phase to hold the sharded paths against:
+#: "map" / "matrix" (the phases 9 and 10 batches), "warm" (phase 7's
+#: windows and their one-batch digests)
+MAIN_BATCHES = {}
 
 
 def emit(obj) -> None:
@@ -628,40 +665,19 @@ def state_out_bytes(D, S, T, K):
 
 
 def reset_counts():
-    from fluidframework_tpu_torch.ops import (fold_cuda, map_lww_cuda,
-                                              matrix_fold_cuda,
-                                              resident_cuda, tree_fold_cuda)
+    from fluidframework_tpu_torch.ops.launches import reset_launches
 
-    fold_cuda.reset_launches()
-    matrix_fold_cuda.reset_launches()
-    resident_cuda.reset_launches()
-    tree_fold_cuda.reset_launches()
-    map_lww_cuda.reset_launches()
+    reset_launches()
 
 
 def read_counts():
     """Launches of each build of the fold kernel, of the matrix fold (and
     of its earlier design, the fold's resolving build), of each resident
     kernel, of each build of the tree kernel and of the map kernel since
-    ``reset_counts``."""
-    from fluidframework_tpu_torch.ops import (fold_cuda, map_lww_cuda,
-                                              matrix_fold_cuda,
-                                              resident_cuda, tree_fold_cuda)
+    ``reset_counts`` (``ops.launches.launch_counts``)."""
+    from fluidframework_tpu_torch.ops.launches import launch_counts
 
-    counts = {f"{entry.__name__}_{where}": n
-              for entry in (fold_cuda.fold, fold_cuda.fold_export,
-                            fold_cuda.fold_resolving)
-              for where, n in entry.placements.items()}
-    counts.update({f"matrix_fold_{where}": n for where, n in
-                   matrix_fold_cuda.fold_resolving.placements.items()})
-    counts["map_lww"] = map_lww_cuda.lww.launches
-    counts["splice_rows"] = resident_cuda.splice_rows.launches
-    counts["widen_resident"] = resident_cuda.widen_resident.launches
-    counts.update({f"tree_{entry.__name__}_{where}": n
-                   for entry in (tree_fold_cuda.fold,
-                                 tree_fold_cuda.fold_digest)
-                   for where, n in entry.placements.items()})
-    return counts
+    return launch_counts()
 
 
 def bytes_bound(moved, elements):
@@ -729,6 +745,7 @@ def warm_phase(dev, docs, sample, drive, launches):
         "grown": [window(i, N_OPS if i in grown_idx else WARM_BASE_OPS)
                   for i in range(len(docs))]}
     want, refs = {}, {}
+    MAIN_BATCHES["warm"] = (windows, want)
     for label, ds in windows.items():
         t = time.perf_counter()
         want[label] = digests(mt.replay_mergetree_batch(ds, device=dev))
@@ -1404,6 +1421,7 @@ def map_phase(dev, drive, launches, card):
     stats = {}
     got, e2e_s = drive("map", lambda: mp.replay_map_batch(
         docs, stats=stats, device=dev))
+    MAIN_BATCHES["map"] = (docs, [g.digest() for g in got], dict(stats))
     t = time.perf_counter()
     bad = [d.doc_id for d, g in zip(docs, got)
            if g.digest() != mp.oracle_map_summary(d).digest()]
@@ -1539,6 +1557,7 @@ def matrix_phase(dev, drive, launches, card):
     stats, transfer = {}, {}
     got, e2e_s = drive("matrix", lambda: mk.replay_matrix_batch(
         docs, stats=stats, device=dev, stage=transfer))
+    MAIN_BATCHES["matrix"] = (docs, [g.digest() for g in got], dict(stats))
     t = time.perf_counter()
     bad = [d.doc_id for d, g in zip(docs, got)
            if g.digest() != mk.oracle_matrix_fallback(d).digest()]
@@ -1958,7 +1977,8 @@ def service_phase(dev, drive, launches, warm_passes):
     check(kernel_s > 0, "the trace holds no CUDA kernel time")
     # S1's corpus (still at its seeded summaries: every S1 call folded
     # with upload=False) is the server phase's
-    s1 = {"service": service, "ids": ids, "wall_s": wall1}
+    s1 = {"service": service, "ids": ids, "wall_s": wall1,
+          "digests": {d: res1[d][0] for d in ids}}
     del prof, service, res1, res2, res_p
     torch.cuda.empty_cache()
 
@@ -2653,6 +2673,527 @@ def server_phase(dev, drive, launches, s1):
     return paths
 
 
+def mesh_phase(dev, drive, launches, docs, one_device, oracle, sample,
+               warm_passes, s1_digests):
+    """Phase 13: the doc-sharded fold (``parallel/shard.py``) on device
+    lists that name the one card twice (``x2``) and three times (``x3``,
+    which pads every batch to a multiple of 3).  Each batch splits into
+    equal contiguous parts, one a list entry; each part folds on its
+    device with its family's kernel; the host reassembles the parts.
+    Sub-phases, each call a driven path:
+
+    - M1: ``replay_mergetree_sharded`` over the pinned workload (10,240 x
+      96): digests equal to the one-device pipeline's of phase 6 and the
+      256-document oracle sample; K1 (fold+export) once a part;
+    - M2: ``replay_tree_sharded`` over S4's streams (2,048 trees x 48):
+      equal to ``pipelined_tree_replay`` (summaries and per-reason
+      fallback stats), an oracle sample of every shape; K5 once a part;
+    - M3 / M4: ``replay_map_sharded`` / ``replay_matrix_sharded`` over the
+      phases 9 and 10 main batches: summaries and stats equal to the
+      one-device entries'; K7 / K4 once a part;
+    - M5: phase 7's warm windows through the doc-sharded tiers on ``x2``
+      (cold, exact, grown): every pass equal to the one batch of its
+      windows, bytes beside phase 7's, the exact pass moving nothing up,
+      the grown pass splicing each part once (K6);
+    - M6: ``CatchupService(mesh=doc_mesh(x2), device=...)`` over a fresh
+      build of S1's corpus, equal to S1's results.
+
+    Returns the driven paths."""
+    import torch
+
+    from fluidframework_tpu_torch.ops.device_cache import DevicePackCache
+    from fluidframework_tpu_torch.ops.pipeline import PackCache
+    from fluidframework_tpu_torch.ops.tree_kernel import (
+        oracle_fallback_summary)
+    from fluidframework_tpu_torch.ops.tree_pipeline import (
+        pipelined_tree_replay)
+    from fluidframework_tpu_torch.parallel import (doc_mesh,
+                                                   replay_map_sharded,
+                                                   replay_matrix_sharded,
+                                                   replay_mergetree_sharded,
+                                                   replay_tree_sharded)
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.catchup import CatchupService
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+    from fluidframework_tpu_torch.testing import service_workload as sw
+    from fluidframework_tpu_torch.testing.tree_workload import (
+        synth_tree_messages, tree_doc)
+
+    meshes = {k: doc_mesh(v) for k, v in MESH_LISTS.items()}
+    paths = []
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"mesh: {what}")
+
+    def digests(summaries):
+        return [x.digest() for x in summaries]
+
+    def launched(path, *rows):
+        return sum(launches[path][k] for r in rows for k in ROW_COUNTS[r])
+
+    def sharded(path, fn):
+        out, wall = drive(path, fn)
+        paths.append(path)
+        return out, wall
+
+    def per_part(path, mesh, *rows):
+        n = launched(path, *rows)
+        check(n == mesh.size, f"{path}: {rows} launched {n} times, not "
+              f"once a part ({mesh.size}): {launches[path]}")
+        return n
+
+    # -- M1: the merge-tree family -------------------------------------------
+    n_ops = N_DOCS * N_OPS
+    for label, mesh in meshes.items():
+        path = f"mesh_m1_{label}"
+        stats, stage = {}, {}
+        got, wall = sharded(path, lambda: replay_mergetree_sharded(
+            docs, mesh=mesh, stats=stats, stage=stage))
+        got = digests(got)
+        bad = [i for i in sample if got[i] != oracle[i]]
+        emit({"phase": "mesh_m1", "devices": MESH_LISTS[label],
+              "docs": N_DOCS, "ops": n_ops, "wall_s": wall,
+              "ops_per_s": n_ops / wall, "launches": launches[path],
+              "stats": stats, "stage": stage,
+              "h2d_bytes": stage["h2d_bytes"],
+              "d2h_bytes": stage["d2h_bytes"],
+              "equals_one_device": got == one_device,
+              "oracle_sample": len(sample), "oracle_mismatches": bad})
+        check(got == one_device and not bad,
+              f"M1 {label}: summaries differ from the one-device pipeline "
+              f"or the oracle ({bad[:8]})")
+        per_part(path, mesh, "mergetree_fold_export_smem")
+
+    # -- M2: the tree family -----------------------------------------------
+    tree_docs = [tree_doc(i, m, len(m)) for i, m in enumerate(
+        synth_tree_messages(i, MESH_TREE_EDITS)
+        for i in range(MESH_TREE_DOCS))]
+    want_stats = {}
+    want = digests(pipelined_tree_replay(tree_docs, stats=want_stats,
+                                         device=dev))
+    tree_oracle = {i: oracle_fallback_summary(tree_docs[i]).digest()
+                   for i in range(MESH_TREE_SAMPLE)}
+    for label, mesh in meshes.items():
+        path = f"mesh_m2_{label}"
+        stats, stage = {}, {}
+        got, wall = sharded(path, lambda: replay_tree_sharded(
+            tree_docs, mesh=mesh, stats=stats, stage=stage))
+        got = digests(got)
+        bad = [i for i, d in tree_oracle.items() if got[i] != d]
+        emit({"phase": "mesh_m2", "devices": MESH_LISTS[label],
+              "docs": MESH_TREE_DOCS, "edits": MESH_TREE_EDITS,
+              "wall_s": wall, "launches": launches[path], "stats": stats,
+              "one_device_stats": want_stats, "stage": stage,
+              "equals_one_device": got == want,
+              "oracle_sample": len(tree_oracle), "oracle_mismatches": bad})
+        check(got == want and stats == want_stats and not bad,
+              f"M2 {label}: trees differ from the one-device pipeline "
+              f"({stats} vs {want_stats}) or the oracle ({bad})")
+        per_part(path, mesh, "tree_fold")
+
+    # -- M3 / M4: the map and matrix families ------------------------------
+    for tag, name, entry, row in (
+            ("m3", "map", replay_map_sharded, "map_lww"),
+            ("m4", "matrix", replay_matrix_sharded, "matrix_fold")):
+        m_docs, m_want, m_stats = MAIN_BATCHES[name]
+        for label, mesh in meshes.items():
+            path = f"mesh_{tag}_{label}"
+            stats = {}
+            got, wall = sharded(path, lambda: entry(m_docs, mesh=mesh,
+                                                    stats=stats))
+            same = digests(got) == m_want
+            emit({"phase": f"mesh_{tag}", "family": name,
+                  "devices": MESH_LISTS[label], "docs": len(m_docs),
+                  "ops": sum(len(d.ops) for d in m_docs), "wall_s": wall,
+                  "launches": launches[path], "stats": stats,
+                  "one_device_stats": m_stats, "equals_one_device": same})
+            check(same and stats == m_stats,
+                  f"{tag.upper()} {label}: {name} summaries or stats "
+                  f"differ from the one-device entry")
+            per_part(path, mesh, row)
+
+    # -- M5: phase 7's windows through the doc-sharded tiers ----------------
+    windows, want_warm = MAIN_BATCHES["warm"]
+    mesh = meshes["x2"]
+    tiers = {"pack_cache": PackCache(), "delta_cache": DeltaExportCache(),
+             "device_cache": DevicePackCache(device=dev)}
+    for name, label in (("cold", "base"), ("exact", "base"),
+                        ("grown", "grown")):
+        path = f"mesh_m5_{name}"
+        stats, stage = {}, {}
+        got, wall = sharded(path, lambda: replay_mergetree_sharded(
+            windows[label], mesh=mesh, stats=stats, stage=stage, **tiers))
+        same = digests(got) == want_warm[label]
+        emit({"phase": "mesh_m5", "pass": name, "windows": label,
+              "devices": MESH_LISTS["x2"], "wall_s": wall,
+              "launches": launches[path], "stats": stats,
+              "busy_s": {k: v for k, v in stage.items()
+                         if not k.endswith("_bytes")},
+              "h2d_bytes": stage["h2d_bytes"],
+              "d2h_bytes": stage["d2h_bytes"],
+              "phase7": {k: warm_passes[name][k]
+                         for k in ("wall_s", "h2d_bytes", "d2h_bytes")},
+              "tiers": {k: v.stats() for k, v in tiers.items()},
+              "equals_batch": same})
+        check(same, f"M5 {name}: summaries differ from the one batch")
+        per_part(path, mesh, "mergetree_fold_export_smem")
+        if name == "exact":
+            check(stage["h2d_bytes"] == 0
+                  and stage["d2h_bytes"] == 8 * len(windows[label]),
+                  f"M5 exact moved {stage['h2d_bytes']} / "
+                  f"{stage['d2h_bytes']} B")
+        if name == "grown":
+            per_part(path, mesh, "splice_rows")
+
+    # -- M6: the seam on the mesh over a fresh build of S1's corpus --------
+    service = LocalOrderingService()
+    ids = sw.build_catchup_corpus(service, N_DOCS, N_OPS)
+    svc = CatchupService(service, mesh=mesh, device=dev)
+    stats = {}
+    res, wall = sharded("mesh_m6", lambda: svc.catch_up(
+        ids, upload=False, stats=stats))
+    same = {d: h for d, (h, _s) in res.items()} == s1_digests
+    emit({"phase": "mesh_m6", "devices": MESH_LISTS["x2"], "docs": N_DOCS,
+          "ops": n_ops, "wall_s": wall, "ops_per_s": n_ops / wall,
+          "launches": launches["mesh_m6"], "stats": stats,
+          "stage": svc.pipeline_stage, "equals_s1": same})
+    check(same and stats["deviceDocs"] == N_DOCS and stats["cpuDocs"] == 0,
+          f"M6: results differ from S1's ({stats})")
+    per_part("mesh_m6", mesh, "mergetree_fold_export_smem")
+    del service, svc, res
+    torch.cuda.empty_cache()
+    return paths
+
+
+def frontdoor_phase(dev, drive, launches):
+    """Phase 14: the out-of-process tier on the card.  A ``FrontDoor``
+    supervising ``FD_SHARDS`` real shard processes (``python -m
+    fluidframework_tpu_torch.service.shardhost --device ...``, each with
+    its own CUDA context, durable log and catch-up seam), heartbeats on,
+    reached over TCP by the port's own client.  Sub-phases:
+
+    - F1: ``FD_DOCS`` documents x 96 ops written through the door
+      (batched ingress), then one ``catchup`` RPC a shard: its answer
+      folds every one of that shard's documents on the card
+      (``deviceDocs``, ``cpuDocs`` 0), every summary equal to this
+      process's in-process fold of the logs read back, a sample equal to
+      the CPU container fold;
+    - F3 (run before F2, while both shards live): ``FD_MIGRATE``
+      documents live-migrated from one shard to the other (freeze,
+      transfer, import, flip, resume), byte-identical logs and summaries
+      after the move;
+    - F2: ``FD_GROW_OPS`` more ops a document while one shard process is
+      SIGKILLed mid-traffic; failover and adoption, then a ``catchup`` on
+      the new owner equal to the in-process fold of the grown logs;
+    - F4: the per-shard ``stats`` RPC (pids, documents, the shard's own
+      kernel launches) and each shard process's RSS.
+
+    A launch in a shard process is counted there: each step's launches
+    are the difference of the shards' ``stats`` before and after it.
+    Returns ``{step: launches}``."""
+    import shutil
+    import threading
+
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        RpcError, _RpcClient)
+    from fluidframework_tpu_torch.protocol.summary import tree_from_obj
+    from fluidframework_tpu_torch.protocol.wire import (
+        decode_sequenced_message)
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.catchup import CatchupService
+    from fluidframework_tpu_torch.service.frontdoor import FrontDoor
+    from fluidframework_tpu_torch.testing import service_workload as sw
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"frontdoor: {what}")
+
+    def rss_mb(pid):
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024.0
+        return None
+
+    shutil.rmtree(FD_DIR, ignore_errors=True)
+    os.makedirs(FD_DIR)
+    door = FrontDoor(FD_DIR, n_shards=FD_SHARDS, spawn="proc", device=dev,
+                     heartbeat_interval=FD_HEARTBEAT,
+                     request_timeout=FD_RPC_TIMEOUT)
+    starts = {}
+    real_spawn = door._spawn
+
+    def timed_spawn(shard_id):
+        t0 = time.perf_counter()
+        handle = real_spawn(shard_id)
+        starts[shard_id] = time.perf_counter() - t0
+        return handle
+
+    door._spawn = timed_spawn
+    handles = []
+    rpc = None
+    shard_launches = {}
+    try:
+        t = time.perf_counter()
+        door.start()
+        start_s = time.perf_counter() - t
+        handles = [door._shard(sid) for sid in door.router.shard_ids()]
+        rpc = _RpcClient("127.0.0.1", door.port, timeout=FD_RPC_TIMEOUT)
+
+        def shard_counts():
+            out = rpc.request("stats", {})["shards"]
+            return {sid: s.get("launches", {}) for sid, s in out.items()
+                    if "launches" in s}
+
+        def step(name, fn):
+            """One step: its result, wall, and the kernel launches it
+            caused in the shard processes (summed over shards)."""
+            before = shard_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            wall = time.perf_counter() - t0
+            after = shard_counts()
+            total = {}
+            for sid, counts in after.items():
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v \
+                        - before.get(sid, {}).get(k, 0)
+            shard_launches[name] = total
+            return out, wall
+
+        def read_back(doc_ids):
+            """This process's in-process service over the logs read back
+            through the door: the seeded summary at 0 and every
+            message."""
+            inproc = LocalOrderingService()
+            seed = sw._seed_summary("sequence-tpu", "text")
+            for d in doc_ids:
+                inproc.storage.upload(d, seed, 0)
+                for m in rpc.request("deltas", {"doc": d}):
+                    inproc.oplog.append(d, decode_sequenced_message(m))
+            return inproc
+
+        def summary_digests(answer):
+            return {d: tree_from_obj(rpc.request(
+                "read_summary", {"handle": h})).digest()
+                for d, (h, _seq) in answer.items()}
+
+        def inproc_digests(inproc, doc_ids):
+            res = CatchupService(inproc, device=dev, cache=None).catch_up(
+                doc_ids, upload=False)
+            return {d: res[d][0] for d in doc_ids}
+
+        # -- F1: write, then one catchup RPC a shard -------------------------
+        t = time.perf_counter()
+        ids = sw.write_catchup_corpus(rpc, FD_DOCS, N_OPS,
+                                      batch_docs=FD_BATCH_DOCS,
+                                      timeout=FD_RPC_TIMEOUT)
+        write_s = time.perf_counter() - t
+        owners = {}
+        for d in ids:
+            owners.setdefault(door._route_probe(d)[0], []).append(d)
+        f1, f1_walls, answers = {}, {}, {}
+        for sid, mine in sorted(owners.items()):
+            out, wall = step(f"frontdoor_f1_{sid}", lambda: rpc.request(
+                "catchup", {"docs": mine}, timeout=FD_RPC_TIMEOUT))
+            f1[sid] = {k: out[k] for k in ("deviceDocs", "cpuDocs", "lane")}
+            f1_walls[sid] = wall
+            answers.update(out["docs"])
+            check(out["deviceDocs"] == len(mine) and out["cpuDocs"] == 0,
+                  f"F1 {sid}: deviceDocs {out['deviceDocs']} / cpuDocs "
+                  f"{out['cpuDocs']} for {len(mine)} documents")
+            check(dev.type != "cuda" or shard_launches[
+                f"frontdoor_f1_{sid}"].get("fold_export_smem", 0) >= 1,
+                f"F1 {sid}: the shard launched no K1: "
+                f"{shard_launches[f'frontdoor_f1_{sid}']}")
+        t = time.perf_counter()
+        inproc = read_back(ids)
+        got = summary_digests(answers)
+        want = inproc_digests(inproc, ids)
+        sample = ids[::max(1, FD_DOCS // FD_ORACLE_SAMPLE)]
+        bad = [d for d in sample
+               if got[d] != sw.catchup_oracle_digest(inproc, d)]
+        verify_s = time.perf_counter() - t
+        rss = {h.shard_id: rss_mb(h.proc.pid) for h in handles}
+        emit({"phase": "frontdoor_f1", "shards": FD_SHARDS,
+              "docs": FD_DOCS, "ops": FD_DOCS * N_OPS,
+              "start_s": start_s, "shard_start_s": starts,
+              "write_s": write_s, "write_ops_per_s":
+              FD_DOCS * N_OPS / write_s,
+              "catchup_s": f1_walls, "answers": f1,
+              "docs_per_shard": {k: len(v) for k, v in owners.items()},
+              "launches": {k: v for k, v in shard_launches.items()
+                           if k.startswith("frontdoor_f1")},
+              "equals_inproc_fold": got == want,
+              "oracle_sample": len(sample), "oracle_mismatches": bad,
+              "verify_s": verify_s, "rss_mb": rss,
+              "heartbeat_failures":
+                  door.counters.get("fd.heartbeat_failures")})
+        check(got == want and not bad,
+              f"F1: summaries differ from the in-process fold "
+              f"({sum(got[d] != want[d] for d in ids)}) or the container "
+              f"fold ({bad[:8]})")
+        del inproc
+
+        # -- F3: live-migrate documents while both shards live --------------
+        src, dst = sorted(owners)[:2]
+        movers = owners[src][:FD_MIGRATE]
+        logs_before = {d: rpc.request("deltas", {"doc": d}) for d in movers}
+        moved, f3_s = step("frontdoor_f3", lambda: door._control(
+            lambda: [door._migrate_doc(d, dst) for d in movers]))
+        routed = {d: door._route_probe(d)[0] for d in movers}
+        logs_after = {d: rpc.request("deltas", {"doc": d}) for d in movers}
+        out3, f3_catchup_s = step("frontdoor_f3_catchup", lambda: rpc.request(
+            "catchup", {"docs": movers}, timeout=FD_RPC_TIMEOUT))
+        same3 = {d: out3["docs"][d][0] for d in movers} \
+            == {d: answers[d][0] for d in movers}
+        emit({"phase": "frontdoor_f3", "docs": movers, "from": src,
+              "to": dst, "migrate_s": f3_s, "moved": moved,
+              "routed": routed, "logs_identical": logs_after == logs_before,
+              "catchup_s": f3_catchup_s,
+              "answer": {k: out3[k] for k in ("deviceDocs", "cpuDocs",
+                                              "lane")},
+              "summaries_identical": same3,
+              "launches": shard_launches["frontdoor_f3_catchup"]})
+        check(all(moved) and set(routed.values()) == {dst}
+              and logs_after == logs_before and same3,
+              f"F3: migration not byte-identical ({moved}, {routed})")
+
+        # -- F2: SIGKILL a shard mid-traffic ---------------------------------
+        victim_sid = src
+        victim = door._shard(victim_sid)
+        plan = sw.growth_plan(ids, N_OPS, N_OPS + FD_GROW_OPS)
+        head = N_OPS + FD_GROW_OPS + 1  # the JOIN, then every op
+        progress, errors = [0], []
+
+        def writer():
+            try:
+                deadline = time.perf_counter() + FD_RPC_TIMEOUT
+                for lo in range(0, len(ids), FD_BATCH_DOCS):
+                    part = ids[lo:lo + FD_BATCH_DOCS]
+                    while part:
+                        check(time.perf_counter() < deadline,
+                              f"F2 writer past its deadline at {part[:4]}")
+                        try:
+                            rpc.request("submit_mixed", {"batches": {
+                                d: [sw.raw_string_op(*r) for r in plan[d]]
+                                for d in part}}, timeout=FD_RPC_TIMEOUT)
+                            heads = rpc.request("heads", {"docs": part},
+                                                timeout=FD_RPC_TIMEOUT)
+                        except (ConnectionError, OSError, RpcError):
+                            heads = {}
+                        part = [d for d in part if heads.get(d) != head]
+                        if part:
+                            time.sleep(0.1)
+                    progress[0] = lo + FD_BATCH_DOCS
+            except BaseException as exc:  # re-raised on the main thread
+                errors.append(exc)
+
+        def grow_and_kill():
+            thread = threading.Thread(target=writer, daemon=True)
+            thread.start()
+            deadline = time.perf_counter() + FD_RPC_TIMEOUT
+            while progress[0] < len(ids) // 2 and not errors \
+                    and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            killed_at = progress[0]
+            victim.proc.kill()  # SIGKILL: no drain, no seal
+            thread.join(timeout=FD_RPC_TIMEOUT)
+            check(not thread.is_alive(), "F2 writer never finished")
+            if errors:
+                raise errors[0]
+            return killed_at
+
+        before2 = shard_counts()
+        t = time.perf_counter()
+        killed_at = grow_and_kill()
+        grow_s = time.perf_counter() - t
+        deadline = time.perf_counter() + 60
+        while victim_sid not in door.router.dead() \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        detect_s = time.perf_counter() - t - grow_s
+        check(victim_sid in door.router.dead(),
+              "F2: the kill was never detected")
+        heads = rpc.request("heads", {"docs": ids}, timeout=FD_RPC_TIMEOUT)
+        contiguous = rpc.request("log_contiguous", {"docs": ids},
+                                 timeout=FD_RPC_TIMEOUT)
+        check(set(heads.values()) == {head} and all(contiguous.values()),
+              f"F2: heads {sorted(set(heads.values()))}, contiguous "
+              f"{sum(contiguous.values())} of {len(ids)}")
+        out2, f2_s = step("frontdoor_f2", lambda: rpc.request(
+            "catchup", {"docs": ids}, timeout=FD_RPC_TIMEOUT))
+        t = time.perf_counter()
+        inproc = read_back(ids)
+        got2 = summary_digests(out2["docs"])
+        want2 = inproc_digests(inproc, ids)
+        verify2_s = time.perf_counter() - t
+        survivors = [h for h in handles if h.shard_id != victim_sid]
+        emit({"phase": "frontdoor_f2", "victim": victim_sid,
+              "killed_after_docs": killed_at, "grow_ops": FD_GROW_OPS,
+              "grow_s": grow_s, "detect_s": detect_s, "catchup_s": f2_s,
+              "answer": {k: out2[k] for k in ("deviceDocs", "cpuDocs",
+                                              "lane", "lanes")},
+              "fences": door.stats()["fences"],
+              "failovers": door.counters.get("fd.failovers"),
+              "adoptions": door.counters.get("fd.adoptions"),
+              "heartbeat_failures":
+                  door.counters.get("fd.heartbeat_failures"),
+              "launches": shard_launches["frontdoor_f2"],
+              "before_f2_launches": before2,
+              "equals_inproc_fold": got2 == want2, "verify_s": verify2_s,
+              "rss_mb": {h.shard_id: rss_mb(h.proc.pid)
+                         for h in survivors}})
+        check(out2["deviceDocs"] == FD_DOCS and out2["cpuDocs"] == 0,
+              f"F2: deviceDocs {out2['deviceDocs']} / cpuDocs "
+              f"{out2['cpuDocs']}")
+        check(got2 == want2, "F2: summaries differ from the in-process "
+              "fold of the grown logs")
+        check(dev.type != "cuda" or shard_launches["frontdoor_f2"].get(
+            "fold_export_smem", 0) >= 1,
+            f"F2: the new owner launched no K1: "
+            f"{shard_launches['frontdoor_f2']}")
+        del inproc
+
+        # -- F4: the per-shard stats RPC -------------------------------------
+        stats4, f4_s = step("frontdoor_f4",
+                            lambda: rpc.request("stats", {}))
+        shards = {sid: {k: s.get(k) for k in ("pid", "docs", "ops",
+                                              "launches")}
+                  for sid, s in stats4["shards"].items()}
+        emit({"phase": "frontdoor_f4", "stats_s": f4_s, "shards": shards,
+              "alive": stats4.get("alive"), "fences": stats4.get("fences"),
+              "epoch": stats4.get("epoch"),
+              "rss_mb": {h.shard_id: rss_mb(h.proc.pid)
+                         for h in survivors}})
+        pids = {s["pid"] for s in shards.values() if s.get("pid")}
+        check(len(pids) == len(survivors) and os.getpid() not in pids,
+              f"F4: stats not from the shard processes: {pids}")
+    except BaseException:
+        # What the shards said last, and what the door saw, on stderr.
+        print(json.dumps({
+            "frontdoor_failure": {
+                "dead": sorted(door.router.dead()),
+                "counters": door.counters.snapshot(),
+                "shard_log_tails": {h.shard_id: h.log_tail[-20:]
+                                    for h in handles},
+                "shard_exit_codes": {h.shard_id: h.proc.poll()
+                                     for h in handles}}}),
+              file=sys.stderr, flush=True)
+        raise
+    finally:
+        if rpc is not None:
+            rpc.close()
+        door.close()
+        for h in handles:
+            if h.proc.poll() is None:
+                h.proc.kill()
+                h.proc.wait(timeout=20)
+    return shard_launches
+
+
 def main() -> int:
     import torch
 
@@ -2997,9 +3538,19 @@ def main() -> int:
 
     # -- 12. the network ordering server -----------------------------------
     server_paths = server_phase(dev, drive, launches, s1)
+    s1_digests = s1["digests"]
     del s1
 
-    # -- 13. times ---------------------------------------------------------
+    # -- 13. the doc-sharded fold on device lists ---------------------------
+    mesh_paths = mesh_phase(dev, drive, launches, docs, digests(p_summaries),
+                            oracle, sample, warm_passes, s1_digests)
+    del s1_digests
+    MAIN_BATCHES.clear()
+
+    # -- 14. the out-of-process tier ---------------------------------------
+    fd_launches = frontdoor_phase(dev, drive, launches)
+
+    # -- 15. times ---------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -3097,6 +3648,12 @@ def main() -> int:
         r["server_launches"] = {
             path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
             for path in server_paths}
+        r["mesh_launches"] = {
+            path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
+            for path in mesh_paths}
+        r["frontdoor_launches"] = {
+            path: sum(counts.get(k, 0) for k in ROW_COUNTS[r["name"]])
+            for path, counts in fd_launches.items()}
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

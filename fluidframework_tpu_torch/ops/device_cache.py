@@ -32,7 +32,12 @@ were built from; the **encoding signature** (per-field dtype and shape
 of the narrowed upload arrays) pins the transfer encoding.
 
 Placement: every entry lives on ``device`` (the card by default;
-``device="cpu"`` for the tests).  A spilled entry (the pinned tier, over
+``device="cpu"`` for the tests), or, once ``set_sharding(mesh)`` placed
+the cache on a doc mesh (``parallel/shard.py``), as one tree per part of
+the mesh's device list (``ops.parts.Parts``: part ``i`` holds the chunk's
+``i``-th equal run of documents on the ``i``-th device).  A suffix splice
+and a widen then launch once a part, on the part's device; the bytes
+counted are the whole chunk's, as one device's.  A spilled entry (the pinned tier, over
 its budget) holds host copies — pinned memory when the device is the
 card — and re-uploads them on its next acquire.  All device work here
 (uploads, the splice, the migration, spills and restores) runs on the
@@ -48,8 +53,6 @@ invalidation (tokens carry the storage epoch as component 0).  Counters:
 splices), ``misses``, ``bypass``, ``inserts``, ``evictions``,
 ``invalidations``, ``bytes_saved`` (h2d bytes the tier kept off the link)
 and the pinned tier's ``pins``, ``unpins``, ``spills``, ``unspills``.
-The reference's mesh placement (``set_sharding``) waits for the port's
-multi-GPU slice (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -67,9 +70,10 @@ from .mergetree_kernel import MTOps, resolve_device
 # the pipeline never imports this module): _np_nbytes is THE "what the
 # upload leg pushes over h2d" byte rule, _doc_window / match_windows THE
 # window-identity rules, MERGETREE_FAMILY the bypass and aux rules.
+from .parts import bounds, per_part, put_on, put_parts
 from .pipeline import (MERGETREE_FAMILY, _doc_window, _np_nbytes,
                        map_leaves, match_windows)
-from .resident_cuda import splice_rows, widen_resident
+from .resident_cuda import splice_row_groups, widen_resident
 
 
 def _leaves(tree):
@@ -222,9 +226,9 @@ class MergeTreeDeviceOps:
         # resident tensors on the device — zero bytes over the link — so
         # the window can still serve/splice.
         old_nbytes = entry.nbytes
-        entry.ops = widen_resident(entry.ops, entry.base)
+        entry.ops = per_part(widen_resident, entry.ops, entry.base)
         if entry.state is not None:
-            entry.state = widen_resident(entry.state, entry.base)
+            entry.state = per_part(widen_resident, entry.state, entry.base)
         entry.sig = sig
         entry.nbytes = _dev_nbytes(entry.state, entry.ops, entry.base)
         cache.reaccount_migrated(tokens, entry, old_nbytes)
@@ -245,10 +249,8 @@ class MergeTreeDeviceOps:
             return None  # suffix ~ whole buffer: full upload is cheaper
         uploaded = sum(v.nbytes for v in rows_np.values()) \
             + 2 * t_new.nbytes
-        rows = MTOps(**{f: cache.put(v) for f, v in rows_np.items()})
-        start = cache.put(t_old)
-        count = cache.put(t_new - t_old)
-        splice_rows(entry.ops, rows, start, count)
+        cache.splice_groups([(entry.ops, MTOps, rows_np, t_old,
+                              t_new - t_old)])
         entry.t_rows = t_new
         return int(uploaded)
 
@@ -278,6 +280,8 @@ class DevicePackCache:
         self._host_bytes = 0  # host bytes of spilled entries
         self._pinned_bytes = 0  # device bytes of pinned, unspilled entries
         self._last_epoch = None  # guarded-by: _lock
+        #: the doc mesh the entries are placed on (None: ``device``)
+        self._mesh = None  # guarded-by: _lock
         self.counters = CounterSet(
             "served", "spliced", "misses", "bypass", "inserts",
             "evictions", "invalidations", "bytes_saved",
@@ -285,6 +289,27 @@ class DevicePackCache:
         )  # guarded-by: _lock (CounterSet is not internally synchronized)
 
     # -- placement -------------------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The doc mesh the entries are placed on, or None."""
+        return self._mesh
+
+    def set_sharding(self, mesh) -> None:
+        """Place the entries on ``mesh`` (a ``parallel.shard.DocMesh``;
+        None: on ``device``).  Idempotent (meshes compare by value).
+        CHANGING an established placement drops the resident entries:
+        buffers laid out for one placement must never serve another."""
+        with self._lock:
+            if mesh is self._mesh or mesh == self._mesh:
+                return
+            self._mesh = mesh
+            dropped = len(self._entries)
+            self._entries.clear()
+            self._bytes = 0
+            self._host_bytes = 0
+            self._pinned_bytes = 0
+            self.counters.bump("evictions", dropped)
 
     def put(self, x) -> torch.Tensor:
         """A copy of a host array (or tensor) on the cache's device —
@@ -296,8 +321,38 @@ class DevicePackCache:
 
     def put_tree(self, tree):
         """``put`` over every leaf of a namedtuple, a plain tuple (a
-        family's aux counts) or a single array."""
+        family's aux counts) or a single array; under a mesh, the tree
+        split into one copy a part, each on its part's device
+        (``ops.parts.put_parts``)."""
+        mesh = self._mesh
+        if mesh is not None:
+            return put_parts(tree, mesh.flat)
         return map_leaves(self.put, tree)
+
+    def splice_groups(self, groups) -> None:
+        """Upload suffix rows and splice them into resident trees in
+        place.  ``groups``: ``(resident, tuple_type, rows_np, start_np,
+        count_np)`` with ``rows_np`` the ``[D, L, ...]`` host rows of each
+        field of ``tuple_type`` (``gather_suffix_rows``) and ``start`` /
+        ``count`` int32 ``[D]``.  Every group in one launch
+        (``resident_cuda.splice_row_groups``) on one device; under a mesh,
+        one launch a part, each part's rows cut from the chunk's rows and
+        its document indices rebased to the part."""
+        mesh = self._mesh
+        if mesh is None:
+            splice_row_groups([
+                (res, tt(**{f: self.put(v) for f, v in rows.items()}),
+                 self.put(start), self.put(count))
+                for res, tt, rows, start, count in groups])
+            return
+        n_rows = len(groups[0][3])
+        for i, ((lo, hi), dev) in enumerate(zip(bounds(n_rows, mesh.size),
+                                                mesh.flat)):
+            splice_row_groups([
+                (res[i], tt(**{f: put_on(v[lo:hi], dev)
+                               for f, v in rows.items()}),
+                 put_on(start[lo:hi], dev), put_on(count[lo:hi], dev))
+                for res, tt, rows, start, count in groups])
 
     @staticmethod
     def _host_copy(leaf: torch.Tensor) -> torch.Tensor:

@@ -13,9 +13,9 @@ the document axis leading — the invariant every generic helper
 (``match_windows``, ``gather_export_rows``) relies on.  Hooks that a
 family does not support are None and the corresponding tier degrades
 (e.g. ``extend=None`` turns every grown-tail window into a full repack —
-a lost win, never corruption).  The reference's mesh hooks
-(``make_pad``, ``pad_token``, ``dispatch_sharded``) join this descriptor
-with the slice that ports the mesh (ROADMAP queue 1 item 7).
+a lost win, never corruption).  The mesh hooks (``make_pad``,
+``pad_token``, ``dispatch_sharded``) serve the doc-sharded fold of
+``parallel/shard.py``.
 """
 
 from __future__ import annotations
@@ -66,6 +66,14 @@ class KernelFamily:
         fallbacks into ``stats``);
       - ``per_doc_meta``: names of per-document ndarray meta entries the
         changed-rows sub-meta must slice alongside docs/doc_packs.
+
+    mesh (``parallel/shard.py``)
+      - ``make_pad()`` → an empty pad document;
+      - ``pad_token(k)`` → deterministic cache token for pad documents;
+      - ``dispatch_sharded(mesh, state_u, ops_u, meta, digest,
+        aux_dev)`` → the export per part of the mesh
+        (``ops.parts.Parts``; the inputs are per part too, each part on
+        its own device).
     """
 
     name: str
@@ -90,3 +98,7 @@ class KernelFamily:
     gather_rows: Callable[[Any, Any], Tuple[Any, int]]
     extract: Callable[[dict, Any, dict], Any]
     per_doc_meta: Tuple[str, ...] = ()
+    # mesh
+    make_pad: Optional[Callable[[], Any]] = None
+    pad_token: Optional[Callable[[int], tuple]] = None
+    dispatch_sharded: Optional[Callable[..., Any]] = None

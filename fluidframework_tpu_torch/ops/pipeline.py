@@ -85,6 +85,7 @@ from .mergetree_kernel import (
     split_export_digest,
     summaries_from_export,
 )
+from .parts import Parts, map_leaves
 
 # ---------------------------------------------------------------------------
 # Pack cache (tier 2 of the catch-up cache): packed-chunk reuse
@@ -579,19 +580,6 @@ def _nbytes(handle) -> int:
     return int(sum(leaf.nbytes for leaf in leaves))
 
 
-def map_leaves(fn, tree):
-    """``fn`` over every leaf of a tree of arrays or tensors: a namedtuple
-    keeps its type, a plain tuple stays a tuple (a family's aux may be
-    either, or a single leaf), None stays None."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple):
-        leaves = [map_leaves(fn, x) for x in tree]
-        return type(tree)(*leaves) if hasattr(tree, "_fields") \
-            else tuple(leaves)
-    return fn(tree)
-
-
 def _np_nbytes(tree) -> int:
     """Bytes of the NUMPY leaves of a state/ops tree: what the upload leg
     pushes over the h2d link."""
@@ -784,6 +772,9 @@ def pipelined_family_replay(
     if device_cache is not None and device_cache.device != dev:
         raise ValueError(f"device_cache lives on {device_cache.device}, "
                          f"the pipeline runs on {dev}")
+    if device_cache is not None and device_cache.mesh is not None:
+        raise ValueError("device_cache is placed on a mesh: the one-device "
+                         "pipeline cannot read per-part buffers")
     # Seed HERE, not in the fold: a batch that routes entirely to
     # fallback never reaches _pipelined_fold, and the schema must hold
     # for it too.
@@ -1102,6 +1093,18 @@ def _mt_dispatch(state, ops, meta, digest: bool, aux_dev):
                          doc_base=aux_dev)
 
 
+def _mt_dispatch_sharded(mesh, state, ops, meta, digest: bool, aux_dev):
+    """The fold+export per part of ``mesh`` (``ops.parts.Parts`` of the
+    part's planes, each on its device): the one-device dispatch once a
+    part, on the part's device and its current stream, every part in the
+    chunk's layout (the chunk-global ``meta`` facts), so the reassembled
+    export equals one device's.  No collective: the fold is per
+    document."""
+    states = state if state is not None else (None,) * len(ops)
+    return Parts(_mt_dispatch(s, o, meta, digest, a)
+                 for s, o, a in zip(states, ops, aux_dev))
+
+
 def _mt_entry_rows(chunk, meta):
     return [
         sum(1 for m in doc.ops
@@ -1116,6 +1119,15 @@ def _mt_entry_nbytes(state, ops, meta) -> int:
         + sum(np.asarray(x).nbytes for x in state)
         + len(meta["arena"]) * 4
     )
+
+
+def _mt_pad_token(k: int) -> tuple:
+    """A deterministic cache token for mesh pad documents: the padded
+    chunk's token tuple must stay all-non-None for tier-2/2.5 keying,
+    and an empty pad doc's "stream" is trivially append-only under a
+    fixed token.  Component 0 is a sentinel epoch, so the tier-0/2.5
+    epoch sweeps treat pad entries as stale on any real epoch change."""
+    return ("\x00pad", f"\x00pad{k}", 0, "")
 
 
 MERGETREE_FAMILY = KernelFamily(
@@ -1138,4 +1150,7 @@ MERGETREE_FAMILY = KernelFamily(
     extract=lambda meta, arr, st: summaries_from_export(meta, arr,
                                                         stats=st),
     per_doc_meta=("doc_base",),
+    make_pad=lambda: MergeTreeDocInput(doc_id="\x00pad", ops=[]),
+    pad_token=_mt_pad_token,
+    dispatch_sharded=_mt_dispatch_sharded,
 )

@@ -47,8 +47,9 @@ from .family import KernelFamily
 from .interning import Interner
 from .mergetree_kernel import (_mix_u32, export_to_numpy,
                                gather_export_rows)
-from .pipeline import PackCache, _copy_interner, pipelined_family_replay
-from .resident_cuda import splice_row_groups
+from .parts import Parts, per_part
+from .pipeline import (PackCache, _copy_interner, _mt_pad_token,
+                       pipelined_family_replay)
 from .tree_fold_cuda import fold, fold_digest
 from .tree_kernel import (
     CONT_FIELDS,
@@ -156,6 +157,15 @@ def _tree_dispatch(state: TreeState, edits: TreeEdits, meta: dict,
     n_nodes, n_cont = aux_dev
     final, dig = fold_digest(state, edits, n_nodes, n_cont)
     return tuple(final) + (dig,)
+
+
+def _tree_dispatch_sharded(mesh, state: TreeState, edits: TreeEdits,
+                           meta: dict, digest: bool, aux_dev):
+    """The fold+export per part of ``mesh``: the one-device dispatch on
+    each part's device (``ops.parts.Parts`` in, ``Parts`` out).  The fold
+    is per document: no collective."""
+    return Parts(_tree_dispatch(s, e, meta, digest, a)
+                 for s, e, a in zip(state, edits, aux_dev))
 
 
 def _split_tree_digest(export, digested: bool):
@@ -391,14 +401,13 @@ class TreeDeviceOps:
             uploaded += sum(v.nbytes for v in rows.values()) \
                 + 2 * new.nbytes
             resident = entry.ops if group is TreeEdits \
-                else _group(group, entry.state)
-            splices.append((
-                resident, group(**{f: cache.put(v) for f, v in rows.items()}),
-                cache.put(old), cache.put(new - old)))
-        splice_row_groups(splices)  # the axes in one launch
+                else per_part(lambda st, g=group: _group(g, st),
+                              entry.state)
+            splices.append((resident, group, rows, old, new - old))
+        cache.splice_groups(splices)  # the axes in one launch (a part)
         # The digest masks by the NEW counts: refresh the resident aux
         # planes (a tiny upload, counted).
-        entry.base = (cache.put(n_new), cache.put(c_new))
+        entry.base = cache.put_tree((n_new, c_new))
         uploaded += 2 * n_new.nbytes
         # Advance the splice watermark: the NEXT splice gathers only rows
         # past THIS one.
@@ -431,6 +440,9 @@ TREE_FAMILY = KernelFamily(
     extract=lambda meta, arr, st: summaries_from_tree_export(
         meta, arr, stats=st),
     per_doc_meta=("n_nodes", "n_cont", "t_rows"),
+    make_pad=lambda: TreeDocInput(doc_id="\x00pad", ops=[]),
+    pad_token=_mt_pad_token,
+    dispatch_sharded=_tree_dispatch_sharded,
 )
 
 

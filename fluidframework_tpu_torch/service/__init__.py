@@ -18,10 +18,17 @@ the catch-up fold on the card):
 - :mod:`retry`    — the client-side retry policy;
 - :mod:`server`   — the TCP ordering server (``python -m
   fluidframework_tpu_torch.service.server``), whose ``catchup`` RPC and
-  streaming fold run on the server's device.
-
-The out-of-process tier (shard hosts, the front door) is not ported yet
-(ROADMAP.md).
+  streaming fold run on the server's device;
+- :mod:`shardhost` — one shard as a standalone server process (``python
+  -m fluidframework_tpu_torch.service.shardhost --device ...``: own
+  durable log, shared summary store, migration/adoption control plane,
+  SIGTERM drain-and-seal, its catch-ups on its device);
+- :mod:`frontdoor` — the routing front door over shard processes
+  (supervision, heartbeats, SIGKILL-fenced failover, live migration),
+  on the :mod:`framepump` event loop.  Imported lazily — not re-exported
+  here — so the in-proc service surface keeps its import graph;
+- :mod:`procclient` — the swarm-facing service adapter over the front
+  door.
 """
 
 from .broadcaster import Broadcaster

@@ -2,9 +2,11 @@
 
 The port's copy of ``fluidframework_tpu/service/catchup.py``, on the
 card: every replay call and the tier-2.5 caches run on the service's one
-``device`` (``"cuda"`` unless the caller passes ``device="cpu"``), the
-bulk fold's trace is a ``torch.profiler`` trace, and the mesh-sharded
-fold is not ported yet (ROADMAP queue 1 item 6).
+``device`` (``"cuda"`` unless the caller passes ``device="cpu"``), or,
+with a doc mesh (``mesh=doc_mesh(...)``, or ``"auto"`` with the
+``Catchup.Mesh`` gate on and more than one card visible), through the
+doc-sharded fold of ``parallel/shard.py`` over the mesh's device list;
+the bulk fold's trace is a ``torch.profiler`` trace.
 
 The north-star service path (BASELINE.json; SURVEY.md §3.2): the reference
 serves catch-up by handing the client a summary plus the scriptorium op
@@ -32,6 +34,8 @@ import json
 import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from ..ops.batching import partition_replay
 from ..ops.mergetree_kernel import MergeTreeDocInput, resolve_device
@@ -189,11 +193,13 @@ class CatchupService:
     ) -> None:
         from ..utils.telemetry import MonitoringContext
 
-        if mesh not in ("auto", None):
-            raise NotImplementedError(
-                "the mesh-sharded catch-up fold is not ported yet (ROADMAP "
-                "queue 1 item 6, multiple GPUs): pass mesh='auto' or None, "
-                "which both fold on the service's one device")
+        from ..parallel.shard import DocMesh
+
+        if not (mesh is None or isinstance(mesh, DocMesh)
+                or (isinstance(mesh, str) and mesh == "auto")):
+            raise TypeError(
+                f"mesh must be 'auto', None or a parallel.shard.doc_mesh, "
+                f"not {mesh!r}")
         #: the one device every replay call and tier-2.5 cache runs on,
         #: resolved once: "cuda" without a card raises here.
         self.device = resolve_device(device)
@@ -293,6 +299,11 @@ class CatchupService:
         #: whether the CURRENT fold pass pins its folded device chunks
         #: into the tier-2.5 resident-state tier (streaming fold only).
         self._pin_resident = False  # guarded-by: _serial
+        #: the doc mesh of the bulk fold: ``"auto"`` = resolved lazily at
+        #: the first device fold (``_resolve_mesh``), ``None`` = the
+        #: service's one device, a ``DocMesh`` = that device list.
+        self._mesh = mesh  # guarded-by: _serial
+        self._mesh_resolved = mesh != "auto"  # guarded-by: _serial
 
     def invalidate_epoch(self, epoch: str) -> None:
         """ONE epoch sweep over every epoch-keyed cache tier this
@@ -310,6 +321,23 @@ class CatchupService:
             self.device_cache.invalidate_epoch(epoch)
         if self.tree_device_cache is not None:
             self.tree_device_cache.invalidate_epoch(epoch)
+
+    def _resolve_mesh(self):  # holds-lock: _serial
+        """Lazy mesh detection (init stays cheap): ``"auto"`` builds a doc
+        mesh over every visible card when the ``Catchup.Mesh`` gate is
+        on, the service's device is CUDA and more than one card is
+        visible; otherwise it means the one device.  Callers hold
+        ``_serial`` (fold path only)."""
+        if not self._mesh_resolved:
+            self._mesh_resolved = True
+            self._mesh = None
+            if gates.is_on(self.mc.config, "Catchup.Mesh") \
+                    and self.device.type == "cuda" \
+                    and torch.cuda.device_count() > 1:
+                from ..parallel.shard import doc_mesh
+
+                self._mesh = doc_mesh()
+        return self._mesh
 
     # -- public API ------------------------------------------------------------
 
@@ -709,8 +737,8 @@ class CatchupService:
         device call per kernel type); fold non-kernel channels host-side;
         reassemble full container summary trees, byte-identical to
         ``ContainerRuntime.summarize()``."""
-        from ..ops.map_kernel import MapDocInput, replay_map_batch
-        from ..ops.matrix_kernel import MatrixDocInput, replay_matrix_batch
+        from ..ops.map_kernel import MapDocInput
+        from ..ops.matrix_kernel import MatrixDocInput
         from ..ops.tree_kernel import TreeDocInput
 
         # Collect per-kernel inputs; (work_idx, plan_idx) → result slot.
@@ -781,44 +809,84 @@ class CatchupService:
                     ))
         import functools
 
-        from ..ops.pipeline import pipelined_mergetree_replay
-        from ..ops.tree_pipeline import pipelined_tree_replay
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            # Doc-sharded service fold: the same byte-identical summaries,
+            # the document axis split over the mesh's device list
+            # (parallel/shard.py), serving the one-device pipeline's tier
+            # stack and stage schema for the string and tree routes (tier
+            # 2.5 placed on the mesh); map and matrix take no tiers, as
+            # in the reference.
+            from ..parallel.shard import (
+                replay_map_sharded,
+                replay_matrix_sharded,
+                replay_mergetree_sharded,
+                replay_tree_sharded,
+            )
 
-        # String + tree channels (the two kernel families of the generic
-        # pipeline) ride the chunked, single-device-thread family
-        # pipeline — the same code path the library entry measures; the
-        # map and matrix batches fold in one dispatch each.  Stage busy
-        # seconds + doc counts accumulate on this instance (the
-        # warm-vs-cold gates read them), and packed windows reuse through
-        # the per-family tier-2 pack caches.
-        replay = {
-            STRING_TYPE: functools.partial(
-                pipelined_mergetree_replay,
-                stats=self.pipeline_stats,
-                stage=self.pipeline_stage,
-                pack_cache=self._pack_cache,
-                delta_cache=self.delta_cache,
-                device_cache=self.device_cache,
-                pin_resident=self._pin_resident,
-                device=self.device,
-            ),
-            MAP_TYPE: functools.partial(
-                replay_map_batch, stats=self.pipeline_stats,
-                device=self.device),
-            MATRIX_TYPE: functools.partial(
-                replay_matrix_batch, stats=self.pipeline_stats,
-                device=self.device),
-            TREE_TYPE: functools.partial(
-                pipelined_tree_replay,
-                stats=self.pipeline_stats,
-                stage=self.pipeline_stage,
-                pack_cache=self.tree_pack_cache,
-                delta_cache=self.delta_cache,
-                device_cache=self.tree_device_cache,
-                pin_resident=self._pin_resident,
-                device=self.device,
-            ),
-        }
+            replay = {
+                STRING_TYPE: functools.partial(
+                    replay_mergetree_sharded, mesh=mesh,
+                    stats=self.pipeline_stats,
+                    stage=self.pipeline_stage,
+                    pack_cache=self._pack_cache,
+                    delta_cache=self.delta_cache,
+                    device_cache=self.device_cache),
+                MAP_TYPE: functools.partial(
+                    replay_map_sharded, mesh=mesh,
+                    stats=self.pipeline_stats),
+                MATRIX_TYPE: functools.partial(
+                    replay_matrix_sharded, mesh=mesh,
+                    stats=self.pipeline_stats),
+                TREE_TYPE: functools.partial(
+                    replay_tree_sharded, mesh=mesh,
+                    stats=self.pipeline_stats,
+                    stage=self.pipeline_stage,
+                    pack_cache=self.tree_pack_cache,
+                    delta_cache=self.delta_cache,
+                    device_cache=self.tree_device_cache),
+            }
+        else:
+            from ..ops.map_kernel import replay_map_batch
+            from ..ops.matrix_kernel import replay_matrix_batch
+            from ..ops.pipeline import pipelined_mergetree_replay
+            from ..ops.tree_pipeline import pipelined_tree_replay
+
+            # String + tree channels (the two kernel families of the generic
+            # pipeline) ride the chunked, single-device-thread family
+            # pipeline — the same code path the library entry measures; the
+            # map and matrix batches fold in one dispatch each.  Stage busy
+            # seconds + doc counts accumulate on this instance (the
+            # warm-vs-cold gates read them), and packed windows reuse through
+            # the per-family tier-2 pack caches.
+            replay = {
+                STRING_TYPE: functools.partial(
+                    pipelined_mergetree_replay,
+                    stats=self.pipeline_stats,
+                    stage=self.pipeline_stage,
+                    pack_cache=self._pack_cache,
+                    delta_cache=self.delta_cache,
+                    device_cache=self.device_cache,
+                    pin_resident=self._pin_resident,
+                    device=self.device,
+                ),
+                MAP_TYPE: functools.partial(
+                    replay_map_batch, stats=self.pipeline_stats,
+                    device=self.device),
+                MATRIX_TYPE: functools.partial(
+                    replay_matrix_batch, stats=self.pipeline_stats,
+                    device=self.device),
+                TREE_TYPE: functools.partial(
+                    pipelined_tree_replay,
+                    stats=self.pipeline_stats,
+                    stage=self.pipeline_stage,
+                    pack_cache=self.tree_pack_cache,
+                    delta_cache=self.delta_cache,
+                    device_cache=self.tree_device_cache,
+                    pin_resident=self._pin_resident,
+                    device=self.device,
+                ),
+            }
         fb_before = self.pipeline_stats.get("fallback_docs", 0)
         results = {
             STRING_TYPE: replay[STRING_TYPE](string_in),

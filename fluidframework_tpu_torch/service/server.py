@@ -784,11 +784,15 @@ class OrderingServer:
         commits — run to completion on this same event loop before the
         signal callback that starts this coroutine can execute, so a
         SIGTERM landing mid-group-commit drains the in-flight batch by
-        construction; the seal's flush then makes its bytes durable."""
+        construction; the seal's flush then makes its bytes durable.
+
+        Open client connections are not waited for (since Python 3.12
+        ``Server.wait_closed()`` waits until every client hangs up, which
+        a connected client never has to do): they stay answered with
+        ``shuttingDown`` until the process exits."""
         self.draining = True
         if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
+            self._server.close()  # stop accepting; clients stay open
         loop = asyncio.get_running_loop()
         deadline = loop.time() + timeout
         while loop.time() < deadline:

@@ -16,8 +16,11 @@ generators:
 Added for the card: ``build_catchup_corpus(..., attribution=True)``
 seeds attribution-enabled documents whose window clamps their inserts,
 ``grow_catchup_corpus(..., grow_every=)`` grows every Nth document's tail
-along the same stream, and ``build_mixed_corpus`` seeds the mixed
-documents with two connected runtimes each.
+along the same stream, ``build_mixed_corpus`` seeds the mixed
+documents with two connected runtimes each, and ``write_catchup_corpus``
+writes the same single-string documents through a server's or a front
+door's RPC (one connected writer a document, the pinned ``synth_doc``
+contents, batched ingress; ``growth_plan`` continues them).
 """
 
 from __future__ import annotations
@@ -204,3 +207,81 @@ def build_mixed_corpus(service, n_docs: int, rng: random.Random,
         all_runtimes[doc_id] = runtimes
         drive_mixed_doc(runtimes, rng, rounds=rounds)
     return all_runtimes
+
+
+#: the one writer of a document written through RPC
+RPC_WRITER = "w"
+
+
+def raw_string_op(contents: dict, client_seq: int, ref_seq: int) -> dict:
+    """One ``synth_doc`` op as the RPC writer's raw op on the wire, in the
+    runtime's groupedBatch envelope."""
+    from ..protocol.messages import RawOperation
+    from ..protocol.wire import encode_raw_operation
+
+    return encode_raw_operation(RawOperation(
+        client_id=RPC_WRITER, client_seq=client_seq, ref_seq=ref_seq,
+        type=MessageType.OP,
+        contents={"type": "groupedBatch", "ops": [
+            {"ds": "ds", "channel": "text", "clientSeq": client_seq,
+             "contents": contents}]}))
+
+
+def _submit_ops(rpc, plan: Dict[str, list], batch_docs: int,
+                timeout: float) -> None:
+    """``plan``: doc -> [(contents, client_seq, ref_seq)], submitted in
+    ``submit_mixed`` calls of ``batch_docs`` documents; raises unless
+    every op of every document was stamped."""
+    docs = sorted(plan)
+    for lo in range(0, len(docs), batch_docs):
+        part = docs[lo:lo + batch_docs]
+        out = rpc.request("submit_mixed", {"batches": {
+            d: [raw_string_op(*row) for row in plan[d]] for d in part}},
+            timeout=timeout)
+        for d in part:
+            got = out.get(d) or {}
+            if got.get("error") or got.get("stamped") != len(plan[d]):
+                raise RuntimeError(f"{d}: submit_mixed stamped "
+                                   f"{got.get('stamped')} of "
+                                   f"{len(plan[d])} ops: {got}")
+
+
+def write_catchup_corpus(rpc, n_docs: int, ops_per_doc: int,
+                         prefix: str = "fdoc", batch_docs: int = 64,
+                         timeout: float = 120.0) -> List[str]:
+    """Create ``n_docs`` single-string documents through ``rpc`` (an
+    ``_RpcClient`` of a server or a front door): each with the empty
+    seeded summary at seq 0, its writer connected (the JOIN is seq 1),
+    then the PINNED ``synth_doc(i, ops_per_doc)`` contents as the
+    writer's ops (op ``j`` lands at seq ``j + 2`` and refers to seq
+    ``j + 1``, so each sees every op before it) through batched
+    ingress.  Returns the doc ids."""
+    from ..protocol.summary import tree_to_obj
+
+    seed = tree_to_obj(_seed_summary("sequence-tpu", "text"))
+    doc_ids, plan = [], {}
+    for i in range(n_docs):
+        doc_id = f"{prefix}{i}"
+        rpc.request("create_document", {"doc": doc_id, "summary": seed,
+                                        "ref_seq": 0}, timeout=timeout)
+        rpc.request("connect", {"doc": doc_id, "client": RPC_WRITER},
+                    timeout=timeout)
+        plan[doc_id] = [(m.contents, j + 1, j + 1) for j, m in enumerate(
+            doc_ops(synth_doc(i, ops_per_doc)))]
+        doc_ids.append(doc_id)
+    _submit_ops(rpc, plan, batch_docs, timeout)
+    return doc_ids
+
+
+def growth_plan(doc_ids: List[str], ops_per_doc: int,
+                grown_ops: int) -> Dict[str, list]:
+    """Ops ``ops_per_doc .. grown_ops - 1`` of each document's pinned
+    stream (``doc_ids[i]`` is ``synth_doc(i, ...)``) as
+    ``(contents, client_seq, ref_seq)`` rows continuing the writer's
+    sequence of :func:`write_catchup_corpus`."""
+    plan = {}
+    for i, doc_id in enumerate(doc_ids):
+        ops = doc_ops(synth_doc(i, grown_ops))
+        plan[doc_id] = [(ops[j].contents, j + 1, j + 1)
+                        for j in range(ops_per_doc, grown_ops)]
+    return plan

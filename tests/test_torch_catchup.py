@@ -18,6 +18,7 @@ from fluidframework_tpu.loader import Loader
 from fluidframework_tpu.runtime.container import (
     ContainerRuntime as RefRuntime)
 from fluidframework_tpu.service import LocalOrderingService as RefOrdering
+from fluidframework_tpu_torch.parallel import doc_mesh
 from fluidframework_tpu_torch.runtime.container import ContainerRuntime
 from fluidframework_tpu_torch.service import LocalOrderingService
 from fluidframework_tpu_torch.service.catchup import CatchupService
@@ -500,9 +501,9 @@ def test_service_attribution_corpus():
 
 @pytest.mark.parametrize("mesh", ["sharded", object(), 4])
 def test_mesh_other_than_auto_or_none_raises(mesh):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(TypeError, match="mesh must be 'auto', None or"):
         CatchupService(LocalOrderingService(), mesh=mesh, device="cpu")
-    for ok in ("auto", None):
+    for ok in ("auto", None, doc_mesh(["cpu", "cpu"])):
         CatchupService(LocalOrderingService(), mesh=ok, device="cpu")
 
 

@@ -1166,3 +1166,174 @@ def test_server_catchup_rpc_on_card_equals_cpu_fold(cuda):
         factory.close()
         server.loop.call_soon_threadsafe(server._server.close)
         thread.join(timeout=10)
+
+
+# -- the doc-sharded fold on a device list that names the card twice ------------
+
+
+def _mesh2():
+    from fluidframework_tpu_torch.parallel import doc_mesh
+
+    return doc_mesh(["cuda:0", "cuda:0"])
+
+
+def test_sharded_entries_on_a_repeated_card_equal_one_device(cuda):
+    """``["cuda:0"] * 2`` splits every batch into two parts folded one
+    after the other on the card: each family's sharded entry equals its
+    one-device entry, with one launch of its kernel a part."""
+    from fluidframework_tpu_torch.ops import map_kernel as mp
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.ops import (map_lww_cuda,
+                                              matrix_fold_cuda,
+                                              tree_fold_cuda)
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.parallel import (replay_map_sharded,
+                                                   replay_matrix_sharded,
+                                                   replay_mergetree_sharded,
+                                                   replay_tree_sharded)
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+    from fluidframework_tpu_torch.testing.tree_workload import tree_windows
+
+    mesh = _mesh2()
+    docs = workload.hard_docs() + [workload.synth_doc(i, 48)
+                                   for i in range(15)]
+    fold_cuda.reset_launches()
+    got = replay_mergetree_sharded(docs, mesh=mesh)
+    assert fold_cuda.fold_export.launches == 2
+    assert [s.digest() for s in got] == [
+        s.digest() for s in mt.replay_mergetree_batch(docs)]
+    _base, grown = tree_windows(33, 48)
+    tree_fold_cuda.reset_launches()
+    got = replay_tree_sharded(grown, mesh=mesh)
+    assert tree_fold_cuda.fold.launches == 2
+    assert [s.digest() for s in got] == [
+        s.digest() for s in tk.replay_tree_batch(grown)]
+    map_docs = cw.hard_map_docs() + [cw.gen_map_doc(i, 96)
+                                     for i in range(9)]
+    map_lww_cuda.reset_launches()
+    got = replay_map_sharded(map_docs, mesh=mesh)
+    assert map_lww_cuda.lww.launches == 2
+    assert [s.digest() for s in got] == [
+        s.digest() for s in mp.replay_map_batch(map_docs)]
+    mx_docs = cw.hard_matrix_docs() + [cw.gen_matrix_doc(i, 64)
+                                       for i in range(9)]
+    matrix_fold_cuda.reset_launches()
+    stats, want_stats = {}, {}
+    got = replay_matrix_sharded(mx_docs, mesh=mesh, stats=stats)
+    assert matrix_fold_cuda.fold_resolving.launches == 2
+    assert [s.digest() for s in got] == [
+        s.digest() for s in mk.replay_matrix_batch(mx_docs,
+                                                   stats=want_stats)]
+    assert stats == want_stats
+
+
+def test_sharded_tiers_on_a_repeated_card_splice_each_part(cuda):
+    """Tier 2.5 placed on ``["cuda:0"] * 2``: the exact pass uploads
+    nothing, the grown pass splices each part in place (one K6 launch a
+    part), and every pass equals the one-device pipeline."""
+    from fluidframework_tpu_torch.ops import resident_cuda
+    from fluidframework_tpu_torch.ops.device_cache import DevicePackCache
+    from fluidframework_tpu_torch.ops.pipeline import PackCache
+    from fluidframework_tpu_torch.parallel import replay_mergetree_sharded
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+
+    streams = [workload.doc_ops(workload.synth_doc(i, 96))
+               for i in range(21)]
+
+    def windows(grown=()):
+        out = []
+        for i, s in enumerate(streams):
+            msgs = s[:96 if i in grown else 80]
+            out.append(mt.MergeTreeDocInput(
+                doc_id=f"d{i}", ops=msgs, final_seq=msgs[-1].seq,
+                final_msn=0, cache_token=("ep", f"d{i}", 0, "")))
+        return out
+
+    tiers = dict(pack_cache=PackCache(), delta_cache=DeltaExportCache(),
+                 device_cache=DevicePackCache())
+    mesh = _mesh2()
+    for label, docs in (("cold", windows()), ("exact", windows()),
+                        ("grown", windows(grown={0, 7, 20}))):
+        stage = {}
+        fold_cuda.reset_launches()
+        resident_cuda.reset_launches()
+        got = replay_mergetree_sharded(docs, mesh=mesh, stage=stage,
+                                       **tiers)
+        assert fold_cuda.fold_export.launches == 2, label
+        assert [s.digest() for s in got] == [
+            s.digest() for s in pipelined_mergetree_replay(docs)], label
+        if label == "exact":
+            assert stage["h2d_bytes"] == 0
+        if label == "grown":
+            assert resident_cuda.splice_rows.launches == 2
+    assert tiers["device_cache"].stats()["spliced"] == 1
+
+
+def test_catchup_service_on_a_repeated_card_equals_one_device(cuda):
+    """``CatchupService(mesh=doc_mesh(["cuda:0"] * 2))``: the seam's
+    sharded branch on the card gives the one-device instance's results
+    and stats."""
+    import random
+
+    from fluidframework_tpu_torch.ops import map_lww_cuda
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.catchup import CatchupService
+    from fluidframework_tpu_torch.testing import service_workload as sw
+
+    service = LocalOrderingService()
+    sw.build_mixed_corpus(service, 6, random.Random("mesh"))
+    sw.build_catchup_corpus(service, 16, 48)
+    one = CatchupService(service, device=cuda)
+    sharded = CatchupService(service, mesh=_mesh2(), device=cuda)
+    o_stats, s_stats = {}, {}
+    want = one.catch_up(stats=o_stats, upload=False)
+    fold_cuda.reset_launches()
+    map_lww_cuda.reset_launches()
+    got = sharded.catch_up(stats=s_stats, upload=False)
+    assert got == want and s_stats == o_stats
+    assert fold_cuda.fold_export.launches == 2
+    assert map_lww_cuda.lww.launches == 2
+
+
+def test_frontdoor_proc_shards_fold_on_the_card(cuda, tmp_path):
+    """Two ``ProcShard`` processes on ``cuda`` behind a ``FrontDoor``: a
+    ``catchup`` RPC for each shard's documents folds every one of them
+    on the card (``cpuDocs`` 0, one K1 launch in the shard's process),
+    each summary equal to the CPU container fold of the log read back."""
+    from fluidframework_tpu_torch.drivers.network_driver import _RpcClient
+    from fluidframework_tpu_torch.protocol.summary import tree_from_obj
+    from fluidframework_tpu_torch.protocol.wire import (
+        decode_sequenced_message)
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.frontdoor import FrontDoor
+    from fluidframework_tpu_torch.testing import service_workload as sw
+
+    door = FrontDoor(str(tmp_path / "fd"), n_shards=2, spawn="proc",
+                     request_timeout=120.0, device=cuda).start()
+    rpc = _RpcClient("127.0.0.1", door.port, timeout=120.0)
+    try:
+        ids = sw.write_catchup_corpus(rpc, 12, 48)
+        owners = {}
+        for d in ids:
+            owners.setdefault(door._route_probe(d)[0], []).append(d)
+        assert len(owners) == 2
+        for sid, mine in owners.items():
+            before = rpc.request("stats", {})["shards"][sid]["launches"]
+            out = rpc.request("catchup", {"docs": mine}, timeout=120.0)
+            after = rpc.request("stats", {})["shards"][sid]["launches"]
+            assert out["deviceDocs"] == len(mine) and out["cpuDocs"] == 0
+            assert after["fold_export_smem"] - before["fold_export_smem"] \
+                == 1
+            for d in mine:
+                service = LocalOrderingService()
+                service.storage.upload(
+                    d, sw._seed_summary("sequence-tpu", "text"), 0)
+                for m in rpc.request("deltas", {"doc": d}):
+                    service.oplog.append(d, decode_sequenced_message(m))
+                tree = tree_from_obj(rpc.request(
+                    "read_summary", {"handle": out["docs"][d][0]}))
+                assert tree.digest() == sw.catchup_oracle_digest(service, d)
+    finally:
+        rpc.close()
+        door.close()

@@ -209,3 +209,85 @@ def test_map_and_matrix_port_replay_with_jax_and_the_jax_package_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_sharded_entries_and_front_door_with_jax_and_the_jax_package_blocked():
+    """The doc-sharded entries of every family on a three-part CPU device
+    list, and a front door over ``ThreadShard`` servers answering a
+    ``catchup`` RPC, with JAX and the JAX package unimportable."""
+    code = (
+        "import sys, tempfile\n"
+        "for m in ('jax', 'jaxlib', 'fluidframework_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fluidframework_tpu_torch.ops import map_kernel as mp\n"
+        "from fluidframework_tpu_torch.ops import matrix_kernel as mk\n"
+        "from fluidframework_tpu_torch.ops import mergetree_kernel as mt\n"
+        "from fluidframework_tpu_torch.ops import tree_kernel as tk\n"
+        "from fluidframework_tpu_torch.parallel import (doc_mesh,\n"
+        "    replay_map_sharded, replay_matrix_sharded,\n"
+        "    replay_mergetree_sharded, replay_tree_sharded)\n"
+        "from fluidframework_tpu_torch.testing import config_workloads as cw\n"
+        "from fluidframework_tpu_torch.testing.tree_workload import (\n"
+        "    tree_windows)\n"
+        "from fluidframework_tpu_torch.testing.workload import synth_doc\n"
+        "mesh = doc_mesh(['cpu'] * 3)\n"
+        "def same(a, b):\n"
+        "    assert [s.digest() for s in a] == [s.digest() for s in b]\n"
+        "docs = [synth_doc(i, 24) for i in range(5)]\n"
+        "same(replay_mergetree_sharded(docs, mesh=mesh),\n"
+        "     mt.replay_mergetree_batch(docs, device='cpu'))\n"
+        "_base, grown = tree_windows(5, 24)\n"
+        "same(replay_tree_sharded(grown, mesh=mesh),\n"
+        "     tk.replay_tree_batch(grown, device='cpu'))\n"
+        "docs = [cw.gen_map_doc(i, 24) for i in range(5)]\n"
+        "same(replay_map_sharded(docs, mesh=mesh),\n"
+        "     mp.replay_map_batch(docs, device='cpu'))\n"
+        "docs = [cw.gen_matrix_doc(i, 24) for i in range(5)]\n"
+        "same(replay_matrix_sharded(docs, mesh=mesh),\n"
+        "     mk.replay_matrix_batch(docs, device='cpu'))\n"
+        "from fluidframework_tpu_torch.drivers.network_driver import (\n"
+        "    _RpcClient)\n"
+        "from fluidframework_tpu_torch.service.frontdoor import FrontDoor\n"
+        "from fluidframework_tpu_torch.testing import service_workload "
+        "as sw\n"
+        "door = FrontDoor(tempfile.mkdtemp(), n_shards=2, spawn='thread',\n"
+        "                 device='cpu').start()\n"
+        "rpc = _RpcClient('127.0.0.1', door.port, timeout=60)\n"
+        "try:\n"
+        "    ids = sw.write_catchup_corpus(rpc, 6, 24)\n"
+        "    out = rpc.request('catchup', {'docs': ids}, timeout=60)\n"
+        "finally:\n"
+        "    rpc.close()\n"
+        "    door.close()\n"
+        "assert out['deviceDocs'] == 6 and out['cpuDocs'] == 0\n"
+        "assert sorted(out['docs']) == sorted(ids)\n"
+        "assert not any(m.startswith(('jax', 'fluidframework_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module,args", [
+    ("shardhost", ["--shard-id", "s0"]),
+    ("frontdoor", []),
+])
+def test_shard_tier_mains_default_to_the_card(tmp_path, module, args):
+    """``shardhost`` and ``frontdoor`` default to ``--device cuda``: with
+    no card they exit 2 naming the missing device before ``--dir`` is
+    created; ``--device cpu`` passes the check."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default starts")
+    target = tmp_path / "deploy"
+    proc = subprocess.run(
+        [sys.executable, "-m", f"fluidframework_tpu_torch.service.{module}",
+         "--dir", str(target), *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2, proc.stderr
+    assert "no CUDA device" in proc.stderr
+    assert not target.exists()
