@@ -134,7 +134,21 @@ port's libraries from the sources in the checkout, and runs in order:
    mid-traffic then a catch-up on the new owner, F4 the per-shard
    ``stats`` RPC; shard start times, RSS and each step's launches in the
    shard processes;
-15. times — each build of the fold kernel alone (CUDA events behind a
+15. the scenario engine (``scenarios_phase``, the port's
+   ``testing.scenarios`` with ``device=``): W1 the catch-up storm
+   (10,000 clients, 128 documents, 4 orderer shards) and its never-shed
+   oracle twin, its storm verdict, and the same spec with
+   ``device="cpu"`` (equal heads and sampled digests; K1 launched); W2
+   tree-collab at the same size with the fold probe (warm pass served
+   resident, K5 launched, equal to the ``device="cpu"`` run); W3 the
+   storm against 2 shard processes on the card (equal to its in-process
+   twin; K1 launched in the shard processes);
+16. the wire soak (``soak_phase``): 1,024 mixed-channel documents seeded
+   over TCP by 4 subprocesses into an in-process ``OrderingServer`` on
+   the card, one ``catchup`` RPC over all of them (K1, K5, K7 and K4
+   launched, ``deviceDocs`` all but none), sampled fresh loads equal to
+   the seeders' digests;
+17. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
    resident kernels, the two tree builds, the matrix fold at both shapes
@@ -149,12 +163,15 @@ port's libraries from the sources in the checkout, and runs in order:
 
 Each driven path (the one-batch entry, the state path, the large-S
 paths, the pipeline, each warm pass, each tree pass, the map and matrix
-entries, each service call, each server RPC, each mesh path) runs with
+entries, each service call, each server RPC, each mesh path, each
+scenario run, the soak's RPC) runs with
 every launch count set to 0 just before it and read just after; each
 row of the ``kernels`` line also carries its launches on every service
 call (``service_launches``), every server RPC (``server_launches``),
-every mesh path (``mesh_launches``) and every front-door step, counted
-in the shard processes (``frontdoor_launches``).  One JSON object per
+every mesh path (``mesh_launches``), every front-door step, counted
+in the shard processes (``frontdoor_launches``), every scenario run
+(``scenario_launches``; W3's shard processes as ``scenario_w3_shards``)
+and the soak's RPC (``soak_launches``).  One JSON object per
 phase goes to stdout.  Any failure raises (non-zero exit, no result
 line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -277,6 +294,27 @@ FD_HEARTBEAT, FD_RPC_TIMEOUT, FD_ORACLE_SAMPLE = 1.0, 600.0, 64
 FD_BATCH_DOCS = 64
 FD_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
                       "frontdoor")
+#: the scenarios phase (the port's ``testing.scenarios`` on the card): W1
+#: the catch-up storm and W2 tree-collab (with the fold probe) at the
+#: settings of the JAX package's BENCH_catchup_storm_cpu_r15.json (seed,
+#: clients, documents, shards); W3 the storm out of process, its shards
+#: folding in shard processes on the card, at the size of the
+#: process-tier swarm smoke (tests/test_fluidproc.py), and where its
+#: deployment goes (gitignored); the in-process storm gate's p99 bound in
+#: virtual ticks and its floor of sequenced ops a second
+#: (tools/loadgen.py's ``STORM_GATE_P99_TICKS`` and
+#: ``GATES_OPS_PER_SEC["catchup-storm"]``)
+SCN_SEED, SCN_CLIENTS, SCN_DOCS, SCN_SHARDS = 10, 10_000, 128, 4
+W3_SEED, W3_CLIENTS, W3_DOCS, W3_SHARDS = 12, 1_000, 16, 2
+SCN_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
+                       "scenarios")
+STORM_GATE_P99_TICKS = 64.0
+STORM_GATE_OPS_PER_SEC = 250.0
+#: the soak phase (the wire soak of tests/test_tools_and_load.py at its
+#: size): documents, and the bound of the seeding and of the one
+#: ``catchup`` RPC
+SOAK_DOCS = 1024
+SOAK_TIMEOUT = 600.0
 #: the launch counters of each row of the ``kernels`` line (the service
 #: and server paths' launches are summed over them)
 ROW_COUNTS = {
@@ -3194,6 +3232,283 @@ def frontdoor_phase(dev, drive, launches):
     return shard_launches
 
 
+def storm_verdict(spec, result, oracle, wall):
+    """The in-process storm gate of the JAX package's ``tools/loadgen.py``
+    (which imports that package, so it is restated here): at least
+    ``STORM_GATE_OPS_PER_SEC`` sequenced ops a second over the run's
+    ``wall``, every request served, the admission lane balanced (admitted
+    + shed + degraded = requests), every planned fault seen, p99 storm
+    latency within ``STORM_GATE_P99_TICKS``, and the never-shed oracle
+    twin's state byte-identical."""
+    storm = result.storm
+    adm = storm.get("admission")
+    out = {
+        "rate_ok": result.sequenced_ops / wall >= STORM_GATE_OPS_PER_SEC,
+        "served_all": storm["served"] == storm["requests"] > 0,
+        "admission_balance_ok": adm is None or (
+            adm["catchup.requests"] == adm["catchup.admitted"]
+            + adm["catchup.shed"] + adm["catchup.degraded"]),
+        "fault_coverage_ok": spec.plan is None or all(
+            result.fault_counts.get(f"{p.site}:{p.kind}", 0) > 0
+            for p in spec.plan.points),
+        "p99_ok": storm["latency_p99_ticks"] <= STORM_GATE_P99_TICKS,
+        "oracle_match": result.sampled_digests == oracle.sampled_digests
+        and result.per_doc_head == oracle.per_doc_head,
+    }
+    out["passed"] = all(out.values())
+    return out
+
+
+def scenarios_phase(dev, drive, launches):
+    """Phase 15: the port's scenario engine (``testing.scenarios``) with
+    every fold on the card, each run a driven path:
+
+    - W1: the catch-up storm (10,000 clients, 128 documents, 4 orderer
+      shards) and its never-shed oracle twin through
+      ``run_swarm_with_oracle(spec, device=...)``: the storm's real
+      ``OrderingServer`` folds each elected catch-up on the card (K1; K7
+      for the map channel).  Gated on the storm verdict, the twin's
+      ``sampled_digests`` and ``per_doc_head``, and a third run of the
+      same spec with ``device="cpu"`` (the plain folds) giving the same
+      digests;
+    - W2: tree-collab at the same size with the fold probe: a
+      ``CatchupService`` on the card catches the sampled documents up
+      cold, then warm from the resident tier (K5 for the trees), equal
+      to the ``device="cpu"`` run;
+    - W3: the storm out of process (``proc_spawn="proc"``, without the
+      in-process fault plan, whose ``catchup`` seams a process tier does
+      not schedule): 2 shard processes on the card answer the elected
+      clients' ``catchup`` RPCs through the front door; their launches
+      are counted in the shard processes (each shard's ``stats`` RPC)
+      and the in-process oracle twin's here.
+
+    Returns ``(paths, shard_launches)``: the in-process driven paths and
+    {path: launches counted in the shard processes}."""
+    import dataclasses
+    import shutil
+
+    from fluidframework_tpu_torch.testing.scenarios import (
+        build_scenario, oracle_spec, run_swarm)
+
+    paths = []
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"scenarios: {what}")
+
+    def launched(path, *rows):
+        return sum(launches[path][k] for r in rows for k in ROW_COUNTS[r])
+
+    def driven(path, spec):
+        """One swarm run on the card as a driven path."""
+        result, wall = drive(path, lambda: run_swarm(spec, device=dev))
+        paths.append(path)
+        return result, wall
+
+    def on_cpu(spec):
+        t = time.perf_counter()
+        result = run_swarm(spec, device="cpu")
+        return result, time.perf_counter() - t
+
+    def record(result, wall):
+        return {"wall_s": wall, "sequenced_ops": result.sequenced_ops,
+                "ops_per_sec": result.sequenced_ops / wall,
+                "joins": result.joins, "sampled_docs":
+                    len(result.sampled_digests)}
+
+    storm_keys = ("requests", "served", "warm", "folds", "shed",
+                  "degraded", "retries", "fold_errors", "shed_rate",
+                  "latency_p50_ticks", "latency_p99_ticks", "elected",
+                  "cohort_clipped")
+    k1 = ("mergetree_fold_export_smem", "mergetree_fold_export_gmem")
+    k5 = ("tree_fold", "tree_fold_digest")
+
+    # -- W1: the catch-up storm and its oracle twin --------------------------
+    spec1 = build_scenario("catchup-storm", seed=SCN_SEED,
+                           clients=SCN_CLIENTS, docs=SCN_DOCS,
+                           shards=SCN_SHARDS)
+    r1, wall1 = driven("scenario_w1", spec1)
+    o1, wall1o = driven("scenario_w1_oracle", oracle_spec(spec1, r1))
+    c1, wall1c = on_cpu(spec1)
+    verdict1 = storm_verdict(spec1, r1, o1, wall1)
+    emit({"phase": "scenarios_w1", "scenario": "catchup-storm",
+          "seed": SCN_SEED, "clients": SCN_CLIENTS, "docs": SCN_DOCS,
+          "shards": SCN_SHARDS, **record(r1, wall1),
+          "oracle_wall_s": wall1o, "cpu_wall_s": wall1c,
+          "storm": {k: r1.storm.get(k) for k in storm_keys},
+          "admission": r1.storm.get("admission"),
+          "fault_counts": r1.fault_counts, "verdict": verdict1,
+          "cpu_digests_equal": c1.sampled_digests == r1.sampled_digests,
+          "cpu_identity_equal": c1.identity() == r1.identity(),
+          "launches": launches["scenario_w1"],
+          "oracle_launches": launches["scenario_w1_oracle"]})
+    check(verdict1["passed"], f"W1 storm verdict {verdict1}")
+    check(c1.sampled_digests == r1.sampled_digests
+          and c1.per_doc_head == r1.per_doc_head,
+          "W1: the card's run and the plain folds' run differ")
+    check(launched("scenario_w1", *k1) >= 1,
+          f"W1 launched no K1: {launches['scenario_w1']}")
+    del r1, o1, c1
+
+    # -- W2: tree-collab with the fold probe ---------------------------------
+    spec2 = dataclasses.replace(build_scenario(
+        "tree-collab", seed=SCN_SEED, clients=SCN_CLIENTS, docs=SCN_DOCS,
+        shards=SCN_SHARDS), fold_probe=True)
+    r2, wall2 = driven("scenario_w2", spec2)
+    c2, wall2c = on_cpu(spec2)
+    ft = r2.fold_tier
+    emit({"phase": "scenarios_w2", "scenario": "tree-collab",
+          "seed": SCN_SEED, "clients": SCN_CLIENTS, "docs": SCN_DOCS,
+          "shards": SCN_SHARDS, **record(r2, wall2), "cpu_wall_s": wall2c,
+          "fold_tier": ft, "cpu_fold_tier": c2.fold_tier,
+          "cpu_digests_equal": c2.sampled_digests == r2.sampled_digests,
+          "cpu_identity_equal": c2.identity() == r2.identity(),
+          "launches": launches["scenario_w2"]})
+    check(c2.sampled_digests == r2.sampled_digests,
+          "W2: the card's run and the plain folds' run differ")
+    check(ft["device_cache"]["served"] >= 1
+          and ft["tree_device_cache"]["served"] >= 1,
+          f"W2: the warm pass did not serve resident: "
+          f"{ft['device_cache']} {ft['tree_device_cache']}")
+    check(launched("scenario_w2", *k5) >= 1,
+          f"W2 launched no K5: {launches['scenario_w2']}")
+    del r2, c2
+
+    # -- W3: the storm against shard processes on the card -------------------
+    shutil.rmtree(SCN_DIR, ignore_errors=True)
+    spec3 = dataclasses.replace(build_scenario(
+        "catchup-storm", seed=W3_SEED, clients=W3_CLIENTS, docs=W3_DOCS,
+        shards=W3_SHARDS), out_of_proc=True, proc_spawn="proc",
+        plan=None, dir=os.path.join(SCN_DIR, "w3"))
+    r3, wall3 = driven("scenario_w3", spec3)
+    o3, wall3o = driven("scenario_w3_oracle", oracle_spec(spec3, r3))
+    shards = r3.shard_stats["cluster"]["shards"]
+    shard_counts = {}
+    for s in shards.values():
+        for k, v in (s.get("launches") or {}).items():
+            shard_counts[k] = shard_counts.get(k, 0) + v
+    same3 = r3.sampled_digests == o3.sampled_digests \
+        and r3.per_doc_head == o3.per_doc_head
+    emit({"phase": "scenarios_w3", "scenario": "catchup-storm",
+          "proc_spawn": "proc", "seed": W3_SEED, "clients": W3_CLIENTS,
+          "docs": W3_DOCS, "shards": W3_SHARDS, **record(r3, wall3),
+          "oracle_wall_s": wall3o,
+          "storm": {k: r3.storm.get(k) for k in storm_keys + ("wire_clock",)},
+          "remote": r3.storm.get("remote"), "oracle_match": same3,
+          "shard_pids": {sid: s.get("pid") for sid, s in shards.items()},
+          "shard_launches": shard_counts,
+          "launches": launches["scenario_w3"],
+          "oracle_launches": launches["scenario_w3_oracle"]})
+    check(same3, "W3: the process tier's state differs from its twin's")
+    check(r3.storm["served"] == r3.storm["requests"] > 0,
+          f"W3: served {r3.storm['served']} of {r3.storm['requests']}")
+    check(dev.type != "cuda" or sum(shard_counts.get(k, 0) for r in k1
+                                    for k in ROW_COUNTS[r]) >= 1,
+          f"W3: the shards launched no K1: {shard_counts}")
+    shutil.rmtree(SCN_DIR, ignore_errors=True)
+    return paths, {"scenario_w3_shards": shard_counts}
+
+
+def soak_phase(dev, drive, launches):
+    """Phase 16: the wire soak on the card.  An in-process
+    ``OrderingServer(device=...)`` on a daemon thread; ``SOAK_PROCS``
+    subprocesses (``python -m fluidframework_tpu_torch.testing.load
+    --wire-worker``) seed ``SOAK_DOCS`` documents of five channel mixes
+    (string, map, matrix, tree, string + map) over TCP, each document's
+    expected digest from a read-only load at its head; a
+    ``CatchupService(device="cpu")`` folds every document with the plain
+    folds and uploads nothing; then one ``catchup`` RPC over every
+    document (a driven path: K1, K5, K7 and K4 each launched, every
+    document on the device route) whose every summary equals the plain
+    fold's, and sampled fresh loads with nothing to replay, byte-identical
+    to the seeders'.  Returns the driven paths."""
+    import torch
+
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        NetworkDocumentServiceFactory)
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.catchup import CatchupService
+    from fluidframework_tpu_torch.service.server import OrderingServer
+    from fluidframework_tpu_torch.testing.load import (
+        SOAK_EDITS, SOAK_PROCS, seed_wire_soak)
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"soak: {what}")
+
+    def launched(*rows):
+        return sum(launches["soak"][k] for r in rows for k in ROW_COUNTS[r])
+
+    service = LocalOrderingService()
+    server = OrderingServer(service, device=dev)
+    thread = server.start_in_thread()
+    check(server.port, "the server never bound its port")
+    factory = None
+    try:
+        t = time.perf_counter()
+        expected = seed_wire_soak("127.0.0.1", server.port, SOAK_DOCS,
+                                  timeout=SOAK_TIMEOUT)
+        seed_s = time.perf_counter() - t
+        check(len(expected) == SOAK_DOCS,
+              f"{len(expected)} documents seeded of {SOAK_DOCS}")
+        t = time.perf_counter()
+        plain = CatchupService(service, mesh=None, cache=None,
+                               device="cpu").catch_up(upload=False)
+        plain_s = time.perf_counter() - t
+        factory = NetworkDocumentServiceFactory(
+            host="127.0.0.1", port=server.port, timeout=SOAK_TIMEOUT)
+        res, rpc_s = drive("soak", lambda: factory._rpc.request(
+            "catchup", {}, timeout=SOAK_TIMEOUT))
+        msgs = sum(seq for _h, seq in res["docs"].values())
+        sample = sorted({min(i, SOAK_DOCS - 1) for i in (
+            0, 1, 2, 3, 4, SOAK_DOCS // 2, SOAK_DOCS - 1)})
+        loader = Loader(factory)
+        bad = []
+        for i in sample:
+            doc = f"soak{i:05d}"
+            c = loader.resolve(doc)
+            if c.catchup_ops != 0 \
+                    or c.runtime.summarize().digest() != expected[doc]:
+                bad.append([doc, c.catchup_ops])
+            c.close()
+        differ = sorted(
+            d for d, (h, seq) in res["docs"].items()
+            if d not in plain or plain[d][1] != seq
+            or service.storage.read(h).digest() != plain[d][0])
+        counts = {row: launched(*rows) for row, rows in (
+            ("K1", ("mergetree_fold_export_smem",
+                    "mergetree_fold_export_gmem")),
+            ("K5", ("tree_fold", "tree_fold_digest")),
+            ("K7", ("map_lww",)), ("K4", ("matrix_fold",)))}
+        emit({"phase": "soak", "docs": SOAK_DOCS, "procs": SOAK_PROCS,
+              "edits": SOAK_EDITS, "seed_s": seed_s, "rpc_s": rpc_s,
+              "plain_fold_s": plain_s, "plain_docs": len(plain),
+              "plain_mismatches": len(differ),
+              "messages": msgs, "ops_per_s": msgs / rpc_s,
+              "lane": res.get("lane"), "deviceDocs": res["deviceDocs"],
+              "cpuDocs": res["cpuDocs"], "answered": len(res["docs"]),
+              "sample": len(sample), "sample_mismatches": bad,
+              "kernels": counts, "launches": launches["soak"]})
+        check(len(res["docs"]) == SOAK_DOCS, f"{len(res['docs'])} answered")
+        check(res["deviceDocs"] == SOAK_DOCS and res["cpuDocs"] == 0,
+              f"deviceDocs {res['deviceDocs']} / cpuDocs {res['cpuDocs']}")
+        check(len(plain) == SOAK_DOCS and not differ,
+              f"{len(differ)} summaries differ from the plain folds' "
+              f"(of {len(plain)}): {differ[:8]}")
+        check(all(n >= 1 for n in counts.values()),
+              f"a kernel family was not launched: {counts}")
+        check(not bad, f"fresh loads differ from the seeders': {bad}")
+    finally:
+        if factory is not None:
+            factory.close()
+        server.loop.call_soon_threadsafe(server._server.close)
+        thread.join(timeout=60)
+    del server
+    torch.cuda.empty_cache()
+    return ["soak"]
+
+
 def main() -> int:
     import torch
 
@@ -3550,7 +3865,14 @@ def main() -> int:
     # -- 14. the out-of-process tier ---------------------------------------
     fd_launches = frontdoor_phase(dev, drive, launches)
 
-    # -- 15. times ---------------------------------------------------------
+    # -- 15. the scenario engine on the card ---------------------------------
+    scenario_paths, scenario_shard_launches = scenarios_phase(
+        dev, drive, launches)
+
+    # -- 16. the wire soak --------------------------------------------------
+    soak_paths = soak_phase(dev, drive, launches)
+
+    # -- 17. times ---------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -3654,6 +3976,15 @@ def main() -> int:
         r["frontdoor_launches"] = {
             path: sum(counts.get(k, 0) for k in ROW_COUNTS[r["name"]])
             for path, counts in fd_launches.items()}
+        r["scenario_launches"] = {
+            path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
+            for path in scenario_paths}
+        r["scenario_launches"].update({
+            path: sum(counts.get(k, 0) for k in ROW_COUNTS[r["name"]])
+            for path, counts in scenario_shard_launches.items()})
+        r["soak_launches"] = {
+            path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
+            for path in soak_paths}
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1337,3 +1337,95 @@ def test_frontdoor_proc_shards_fold_on_the_card(cuda, tmp_path):
     finally:
         rpc.close()
         door.close()
+
+
+# -- the scenario engine and the wire soak on the card --------------------------
+
+
+def test_storm_swarm_on_card_equals_cpu(cuda):
+    """A small catch-up storm (the port's ``testing.scenarios``) with its
+    ``OrderingServer`` folding on the card: K1 launched, and the whole
+    replay-identity surface (heads, sampled digests, storm verdict
+    counters) equal to the same spec's ``device="cpu"`` run."""
+    from fluidframework_tpu_torch.ops.launches import (launch_counts,
+                                                       reset_launches)
+    from fluidframework_tpu_torch.testing.scenarios import (build_scenario,
+                                                            run_swarm)
+
+    spec = build_scenario("catchup-storm", seed=3, clients=800, docs=8,
+                          shards=4)
+    reset_launches()
+    got = run_swarm(spec, device=cuda)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = run_swarm(spec, device="cpu")
+    assert counts["fold_export_smem"] + counts["fold_export_gmem"] >= 1
+    assert got.storm["folds"] >= 1
+    assert got.identity() == want.identity()
+
+
+def _soak_on(device, n_docs):
+    """The wire soak over an in-process server on ``device``: the
+    seeders' digests, the ``catchup`` answer, each answered summary's
+    digest, the launches around the RPC, and sampled fresh loads."""
+    from fluidframework_tpu_torch.drivers.network_driver import (
+        NetworkDocumentServiceFactory)
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.ops.launches import (launch_counts,
+                                                       reset_launches)
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.server import OrderingServer
+    from fluidframework_tpu_torch.testing.load import seed_wire_soak
+
+    service = LocalOrderingService()
+    server = OrderingServer(service, device=device)
+    thread = server.start_in_thread()
+    factory = None
+    try:
+        expected = seed_wire_soak("127.0.0.1", server.port, n_docs,
+                                  timeout=300.0)
+        factory = NetworkDocumentServiceFactory(host="127.0.0.1",
+                                                port=server.port,
+                                                timeout=300.0)
+        reset_launches()
+        res = factory._rpc.request("catchup", {}, timeout=300.0)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        summaries = {d: service.storage.read(h).digest()
+                     for d, (h, _seq) in res["docs"].items()}
+        loads = {}
+        loader = Loader(factory)
+        for i in (0, 1, 2, 3, 4, n_docs - 1):
+            doc = f"soak{i:05d}"
+            c = loader.resolve(doc)
+            loads[doc] = (c.catchup_ops, c.runtime.summarize().digest())
+            c.close()
+        return expected, res, summaries, counts, loads
+    finally:
+        if factory is not None:
+            factory.close()
+        server.loop.call_soon_threadsafe(server._server.close)
+        thread.join(timeout=10)
+
+
+def test_wire_soak_on_card_equals_cpu(cuda):
+    """64 mixed-channel documents seeded over TCP by 4 worker processes
+    (``python -m fluidframework_tpu_torch.testing.load --wire-worker``),
+    folded by one ``catchup`` RPC on the card: K1, K5, K7 and K4 each
+    launched, every document on the device route, every summary equal to
+    the ``device="cpu"`` server's, fresh loads replaying nothing and
+    equal to the seeders' digests."""
+    exp_gpu, res_gpu, sums_gpu, counts, loads_gpu = _soak_on(cuda, 64)
+    exp_cpu, res_cpu, sums_cpu, _, loads_cpu = _soak_on("cpu", 64)
+    assert exp_gpu == exp_cpu
+    assert res_gpu["deviceDocs"] == res_cpu["deviceDocs"] == 64
+    assert res_gpu["cpuDocs"] == 0
+    assert sums_gpu == sums_cpu
+    assert loads_gpu == loads_cpu
+    assert all(ops == 0 and digest == exp_gpu[doc]
+               for doc, (ops, digest) in loads_gpu.items())
+    assert counts["fold_export_smem"] + counts["fold_export_gmem"] >= 1
+    assert counts["tree_fold_digest_smem"] + counts["tree_fold_smem"] >= 1
+    assert counts["map_lww"] >= 1
+    assert counts["matrix_fold_smem"] + counts["matrix_fold_gmem"] >= 1

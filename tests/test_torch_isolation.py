@@ -291,3 +291,66 @@ def test_shard_tier_mains_default_to_the_card(tmp_path, module, args):
     assert proc.returncode == 2, proc.stderr
     assert "no CUDA device" in proc.stderr
     assert not target.exists()
+
+
+#: the modules of the last slice: the harnesses, the summarizer, the
+#: framework layer and the tools
+HOST_MODULES = (
+    "testing", "testing.load", "testing.scenarios", "testing.fuzz",
+    "testing.mocks", "runtime", "runtime.summarizer", "framework",
+    "framework.data_object", "framework.fluid_static", "framework.presence",
+    "framework.undo_redo", "tools", "tools.bench_harness", "tools.devtools",
+    "tools.replay")
+
+
+def test_host_modules_and_the_swarm_with_jax_and_the_jax_package_blocked():
+    """Every module of the harnesses, the summarizer, the framework layer
+    and the tools imports with JAX and the JAX package unimportable, and
+    a 100-client catch-up storm runs through the scenario engine with
+    ``device="cpu"``, its oracle twin byte-identical."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'fluidframework_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        f"for name in {HOST_MODULES!r}:\n"
+        "    importlib.import_module('fluidframework_tpu_torch.' + name)\n"
+        "from fluidframework_tpu_torch.testing import (build_scenario,\n"
+        "    run_swarm_with_oracle)\n"
+        "spec = build_scenario('catchup-storm', seed=4, clients=100, docs=4,\n"
+        "                      shards=2)\n"
+        "result, twin = run_swarm_with_oracle(spec, device='cpu')\n"
+        "assert result.joins == 100 and result.storm['requests'] > 0\n"
+        "assert result.storm['served'] == result.storm['requests']\n"
+        "assert result.sampled_digests == twin.sampled_digests\n"
+        "assert result.per_doc_head == twin.per_doc_head\n"
+        "assert not any(m.startswith(('jax', 'fluidframework_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["run_swarm", "run_swarm_with_oracle",
+                                   "ClientSwarm"])
+def test_swarm_without_device_raises_when_no_cuda(monkeypatch, entry):
+    """The swarm's entries default to the card: with no CUDA device a
+    call that names none raises before any server, shard or store is
+    built."""
+    from fluidframework_tpu_torch.testing import scenarios
+
+    spec = scenarios.build_scenario("catchup-storm", seed=0, clients=16,
+                                    docs=2, shards=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(scenarios, "LocalOrderingService",
+                        lambda *a, **k: built.append(1))
+    monkeypatch.setattr(scenarios, "ShardedOrderingService",
+                        lambda *a, **k: built.append(1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(scenarios, entry)(spec)
+    assert built == []

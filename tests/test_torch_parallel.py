@@ -19,14 +19,10 @@ import torch
 import bench
 from fluidframework_tpu.ops import map_kernel as ref_mp
 from fluidframework_tpu.ops import matrix_kernel as ref_mk
-from fluidframework_tpu.ops import mergetree_kernel as ref_mt
 from fluidframework_tpu.ops import tree_kernel as ref_tk
 from fluidframework_tpu.parallel import shard as ref_shard
 from fluidframework_tpu.service import LocalOrderingService as RefOrdering
 from fluidframework_tpu.service.catchup import CatchupService as RefCatchup
-from fluidframework_tpu.testing.fuzz import (MapFuzzSpec, MatrixFuzzSpec,
-                                             StringFuzzSpec, run_fuzz)
-from fluidframework_tpu.testing.mocks import channel_log
 from fluidframework_tpu_torch.convert import (load_service_corpus,
                                               map_doc_input_from,
                                               matrix_doc_input_from,
@@ -44,7 +40,8 @@ from fluidframework_tpu_torch.parallel import (dcn_mesh, doc_mesh,
 from fluidframework_tpu_torch.service import LocalOrderingService
 from fluidframework_tpu_torch.service.catchup import CatchupService
 from tests.test_tree_kernel import run_fuzz_doc
-from tests.torch_corpora import graft_entry, port_docs
+from tests.torch_corpora import (GENERATORS, graft_entry, port_docs,
+                                 port_twin, twinned)
 from tests.torch_service import export_corpus
 from tests.torch_tiers import TierPair, corpus, streams
 
@@ -83,50 +80,61 @@ def both(ref_fn, port_fn, ref_docs, port_in, n, **kw):
     return digests(got)
 
 
+def _fuzz_docs(spec_name, make_doc, seeds, rounds):
+    """Each seed's fuzz log as a doc input built by each package's own
+    generator (``torch_corpora.twinned``), with the reference replica's
+    summary digest: (reference docs carrying their port twins, oracle
+    digests)."""
+    oracle = []
+
+    def build(gen):
+        docs = []
+        for i, seed in enumerate(seeds):
+            replicas, factory = gen.run_fuzz(
+                getattr(gen.fuzz, spec_name)(), seed=seed, n_clients=2,
+                rounds=rounds + i)
+            docs.append(make_doc(gen, i, factory))
+            if gen is GENERATORS[0]:  # the reference's replicas
+                oracle.append(replicas[0].summarize().digest())
+        return docs
+
+    return twinned(build), oracle
+
+
 @pytest.fixture(scope="module")
 def fuzz_docs():
-    docs, oracle_digests = [], []
-    for seed in range(11):  # deliberately not a multiple of 8
-        replicas, factory = run_fuzz(
-            StringFuzzSpec(), seed=300 + seed, n_clients=2, rounds=5 + seed)
-        docs.append(ref_mt.MergeTreeDocInput(
-            doc_id=f"doc{seed}", ops=channel_log(factory, "fuzz"),
-            final_seq=factory.sequencer.seq,
-            final_msn=factory.sequencer.min_seq))
-        oracle_digests.append(replicas[0].summarize().digest())
-    return docs, oracle_digests
+    # 11 documents: deliberately not a multiple of 8
+    return _fuzz_docs("StringFuzzSpec", lambda gen, i, factory:
+                      gen.MergeTreeDocInput(
+                          doc_id=f"doc{i}",
+                          ops=gen.channel_log(factory, "fuzz"),
+                          final_seq=factory.sequencer.seq,
+                          final_msn=factory.sequencer.min_seq),
+                      range(300, 311), 5)
 
 
 def _map_docs(base_seed, n, rounds):
-    docs, oracle = [], []
-    for seed in range(n):
-        replicas, factory = run_fuzz(MapFuzzSpec(), seed=base_seed + seed,
-                                     n_clients=2, rounds=rounds + seed)
-        docs.append(ref_mp.MapDocInput(doc_id=f"m{seed}",
-                                       ops=channel_log(factory, "fuzz")))
-        oracle.append(replicas[0].summarize().digest())
-    return docs, oracle
+    return _fuzz_docs("MapFuzzSpec", lambda gen, i, factory: gen.MapDocInput(
+        doc_id=f"m{i}", ops=gen.channel_log(factory, "fuzz")),
+        range(base_seed, base_seed + n), rounds)
 
 
 def _matrix_docs(base_seed, n, rounds):
-    docs, oracle = [], []
-    for seed in range(n):
-        replicas, factory = run_fuzz(MatrixFuzzSpec(), seed=base_seed + seed,
-                                     n_clients=2, rounds=rounds + seed)
-        docs.append(ref_mk.MatrixDocInput(
-            doc_id=f"mx{seed}", ops=channel_log(factory, "fuzz"),
-            final_seq=factory.sequencer.seq,
-            final_msn=factory.sequencer.min_seq))
-        oracle.append(replicas[0].summarize().digest())
-    return docs, oracle
+    return _fuzz_docs("MatrixFuzzSpec", lambda gen, i, factory:
+                      gen.MatrixDocInput(
+                          doc_id=f"mx{i}",
+                          ops=gen.channel_log(factory, "fuzz"),
+                          final_seq=factory.sequencer.seq,
+                          final_msn=factory.sequencer.min_seq),
+                      range(base_seed, base_seed + n), rounds)
 
 
 def _map_in(docs):
-    return [map_doc_input_from(d) for d in docs]
+    return [port_twin(d, map_doc_input_from) for d in docs]
 
 
 def _matrix_in(docs):
-    return [matrix_doc_input_from(d) for d in docs]
+    return [port_twin(d, matrix_doc_input_from) for d in docs]
 
 
 def _tree_in(docs):

@@ -28,7 +28,6 @@ import time
 import pytest
 import torch
 
-from fluidframework_tpu.testing.load import VirtualClock
 from tests.torch_server import (PORT, Session, build_mixed, free_port,
                                 quiesce, run_both, start, stop, timing_free,
                                 type_mixed, type_text)
@@ -235,7 +234,7 @@ def _append_op(pkg, service, client="w", key="late", value=9):
 
 
 def _admission_controller(pkg):
-    clock = VirtualClock()
+    clock = pkg.VirtualClock()
     ctl = pkg.AdmissionController(2, clock=clock, retry_floor=0.1,
                                   retry_cap=3.0, cost_init=0.5)
     verdicts = [ctl.admit(), ctl.admit()]
@@ -269,7 +268,7 @@ def test_admission_controller_pacing_and_leases():
 def _warm_bypass(pkg):
     service, _loader = _service_with_doc(pkg, summarize_at_head=True)
     server = pkg.OrderingServer(service, catchup_max_inflight=1,
-                                clock=VirtualClock())
+                                clock=pkg.VirtualClock())
     verdict, _token = server.admission_control.admit()  # saturate
     out = server._dispatch(Session(), "catchup", {"docs": ["doc"]})
     return {"verdict": verdict, "out": out,
@@ -338,7 +337,7 @@ def test_single_flight_herd_costs_one_admission_slot(monkeypatch):
 
 
 def _shed_then_retry(pkg):
-    clock = VirtualClock()
+    clock = pkg.VirtualClock()
     service, _loader = _service_with_doc(pkg, sets=3)
     server = pkg.OrderingServer(service, catchup_max_inflight=1,
                                 clock=clock)
@@ -367,7 +366,7 @@ def _degraded(pkg, gate_on):
     if not gate_on:
         settings["Catchup.DegradedServe"] = "off"
     server = pkg.OrderingServer(service, catchup_max_inflight=1,
-                                clock=VirtualClock(),
+                                clock=pkg.VirtualClock(),
                                 mc=pkg.mc(**settings))
     server.admission_control.admit()  # saturate; never freed
     if not gate_on:
@@ -406,7 +405,7 @@ def _catchup_fail(pkg):
     injector = pkg.FaultInjector(pkg.FaultPlan(seed=1, points=(
         pkg.FaultPoint("catchup.fail", "fail", at=1),)))
     server = pkg.OrderingServer(service, catchup_max_inflight=1,
-                                clock=VirtualClock(), faults=injector)
+                                clock=pkg.VirtualClock(), faults=injector)
     with pytest.raises(OSError):
         server._dispatch(Session(), "catchup", {"docs": ["doc"]})
     # the lease was released by the finally and no flight is stranded
@@ -426,7 +425,7 @@ def test_catchup_fail_releases_slot_and_caller_retries():
 
 
 def _catchup_slow(pkg):
-    clock = VirtualClock()
+    clock = pkg.VirtualClock()
     service, _loader = _service_with_doc(pkg, sets=3)
     injector = pkg.FaultInjector(pkg.FaultPlan(seed=1, points=(
         pkg.FaultPoint("catchup.slow", "delay", at=1, arg=3.0),)))

@@ -5,14 +5,14 @@ two records must be equal: the poll results ``{doc: (handle, ref_seq)}``,
 every ``stats()`` dict, the head index's entries, the op-log floors and
 ``bytes_reclaimed``, and the server's stream-lane answers.
 
-Two groups of the reference's scenarios are not here:
+Two groups of the reference's scenarios are elsewhere:
 
 - the ``DevicePackCache`` pin tests (pin survives the LRU sweep, the pin
   budget spills to the host and restores, unpin) — the port's tier-2.5
-  cache runs them already against the reference
+  cache runs them against the reference
   (tests/test_torch_device_cache.py);
-- the scenario-spec validations — they check
-  ``fluidframework_tpu.testing.scenarios``, which is not ported yet.
+- the scenario-spec validations — they check the scenario engine, and
+  run on both packages in tests/test_torch_scenarios.py.
 """
 
 import pytest

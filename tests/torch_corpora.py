@@ -1,9 +1,13 @@
 """Shared corpora for the PyTorch port's parity tests (tests/test_torch_*).
 
 Every corpus is built twice from the same seeds: once as the JAX
-package's ``MergeTreeDocInput``s and once as the port's (converted by
-attribute name with ``convert.doc_input_from``), so both sides fold the
-same inputs.
+package's ``MergeTreeDocInput``s and once as the port's, so both sides
+fold the same inputs.  A corpus drawn from the fuzz harness is generated
+by each package's own harness (``GENERATORS``: its ``fuzz``, ``mocks``,
+doc inputs and ``SharedString``), the port's documents riding on the
+reference's as ``port_twin``; any other corpus is converted by attribute
+name (``convert.doc_input_from``).  ``port_docs`` hands the port its
+side either way.
 """
 
 import importlib.util
@@ -14,11 +18,21 @@ import numpy as np
 import torch
 
 import bench
-from fluidframework_tpu.dds.sequence import SharedString
+import types
+
+import fluidframework_tpu.dds.sequence as ref_sequence
+import fluidframework_tpu.ops.map_kernel as ref_map_kernel
+import fluidframework_tpu.ops.matrix_kernel as ref_matrix_kernel
+import fluidframework_tpu.testing.fuzz as ref_fuzz
+import fluidframework_tpu.testing.mocks as ref_mocks
+import fluidframework_tpu_torch.dds.sequence as port_sequence
+import fluidframework_tpu_torch.ops.map_kernel as port_map_kernel
+import fluidframework_tpu_torch.ops.matrix_kernel as port_matrix_kernel
+import fluidframework_tpu_torch.ops.mergetree_kernel as port_mergetree_kernel
+import fluidframework_tpu_torch.testing.fuzz as port_fuzz
+import fluidframework_tpu_torch.testing.mocks as port_mocks
 from fluidframework_tpu.ops.mergetree_kernel import MergeTreeDocInput
 from fluidframework_tpu.protocol.messages import MessageType, SequencedMessage
-from fluidframework_tpu.testing.fuzz import StringFuzzSpec, run_fuzz
-from fluidframework_tpu.testing.mocks import channel_log
 from fluidframework_tpu_torch.convert import doc_input_from
 from fluidframework_tpu_torch.testing import workload
 
@@ -28,6 +42,41 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # pool costs several times the work it splits (and the test workers
 # already share the cores).
 torch.set_num_threads(1)
+
+
+def _generator(fuzz, mocks, sequence, mergetree_input, map_kernel,
+               matrix_kernel):
+    return types.SimpleNamespace(
+        fuzz=fuzz, run_fuzz=fuzz.run_fuzz, channel_log=mocks.channel_log,
+        SharedString=sequence.SharedString, MergeTreeDocInput=mergetree_input,
+        MapDocInput=map_kernel.MapDocInput,
+        MatrixDocInput=matrix_kernel.MatrixDocInput)
+
+
+#: each package's own generator of fuzz corpora: (reference, port)
+GENERATORS = (
+    _generator(ref_fuzz, ref_mocks, ref_sequence, MergeTreeDocInput,
+               ref_map_kernel, ref_matrix_kernel),
+    _generator(port_fuzz, port_mocks, port_sequence,
+               port_mergetree_kernel.MergeTreeDocInput, port_map_kernel,
+               port_matrix_kernel),
+)
+
+
+def twinned(build):
+    """``build(gen)`` with each package's generator: the reference's
+    documents, each carrying the port's build of it as ``port_twin``."""
+    ref, port = (build(gen) for gen in GENERATORS)
+    for r, p in zip(ref, port, strict=True):
+        r.port_twin = p
+    return ref
+
+
+def port_twin(doc, convert):
+    """The port's side of a reference document: its ``port_twin`` when
+    the port's own generator built one, else ``convert(doc)``."""
+    twin = getattr(doc, "port_twin", None)
+    return twin if twin is not None else convert(doc)
 
 
 def graft_entry():
@@ -71,47 +120,44 @@ def reference_doc(port_doc):
     )
 
 
+def fuzz_doc(gen, doc_id, spec, **run):
+    """One fuzz run's op log as ``gen``'s merge-tree doc input."""
+    _r, factory = gen.run_fuzz(spec, **run)
+    return gen.MergeTreeDocInput(
+        doc_id=doc_id, ops=gen.channel_log(factory, "fuzz"),
+        final_seq=factory.sequencer.seq,
+        final_msn=factory.sequencer.min_seq,
+    )
+
+
 def fold_fuzz_docs(seed):
     """The fuzz logs of tests/test_pallas_fold.py (annotate- and
     obliterate-carrying, lagged by ``sync_every=2``)."""
-    docs = []
-    for i, spec in enumerate((StringFuzzSpec(annotate=True),
-                              StringFuzzSpec(obliterate=True))):
-        _r, factory = run_fuzz(spec, seed=1300 + 10 * seed + i,
-                               n_clients=3, rounds=8, sync_every=2)
-        docs.append(MergeTreeDocInput(
-            doc_id=f"fz{i}", ops=channel_log(factory, "fuzz"),
-            final_seq=factory.sequencer.seq,
-            final_msn=factory.sequencer.min_seq,
-        ))
-    return docs
+    return twinned(lambda gen: [
+        fuzz_doc(gen, f"fz{i}", spec, seed=1300 + 10 * seed + i,
+                 n_clients=3, rounds=8, sync_every=2)
+        for i, spec in enumerate((gen.fuzz.StringFuzzSpec(annotate=True),
+                                  gen.fuzz.StringFuzzSpec(obliterate=True)))])
 
 
 def interval_docs(seeds=range(3)):
     """Interval-carrying fuzz logs, as tests/test_mergetree_kernel.py."""
-    docs = []
-    for seed in seeds:
-        _r, factory = run_fuzz(StringFuzzSpec(intervals=True),
-                               seed=900 + seed, n_clients=3, rounds=25)
-        docs.append(MergeTreeDocInput(
-            doc_id=f"iv{seed}", ops=channel_log(factory, "fuzz"),
-            final_seq=factory.sequencer.seq,
-            final_msn=factory.sequencer.min_seq,
-        ))
-    return docs
+    return twinned(lambda gen: [
+        fuzz_doc(gen, f"iv{seed}", gen.fuzz.StringFuzzSpec(intervals=True),
+                 seed=900 + seed, n_clients=3, rounds=25)
+        for seed in seeds])
 
 
-def warm_doc(seed=9):
-    """A base summary at the midpoint plus the op tail after it."""
-    _r, factory = run_fuzz(StringFuzzSpec(), seed=seed, n_clients=3,
-                           rounds=16)
-    ops = channel_log(factory, "fuzz")
+def _warm_doc(gen, seed):
+    _r, factory = gen.run_fuzz(gen.fuzz.StringFuzzSpec(), seed=seed,
+                               n_clients=3, rounds=16)
+    ops = gen.channel_log(factory, "fuzz")
     mid_seq = ops[len(ops) // 2].seq
-    partial = SharedString("fuzz")
+    partial = gen.SharedString("fuzz")
     for m in ops:
         if m.seq <= mid_seq:
             partial.process(m, local=False)
-    return MergeTreeDocInput(
+    return gen.MergeTreeDocInput(
         doc_id="warm",
         ops=[m for m in ops if m.seq > mid_seq],
         base_records=json.loads(partial.summarize().blob_bytes("body")),
@@ -119,6 +165,12 @@ def warm_doc(seed=9):
         final_seq=factory.sequencer.seq,
         final_msn=factory.sequencer.min_seq,
     )
+
+
+def warm_doc(seed=9):
+    """A base summary at the midpoint plus the op tail after it."""
+    [doc] = twinned(lambda gen: [_warm_doc(gen, seed)])
+    return doc
 
 
 #: the fold-parity corpora, by name
@@ -134,7 +186,7 @@ FOLD_CORPORA = {
 
 
 def port_docs(ref_docs):
-    return [doc_input_from(d) for d in ref_docs]
+    return [port_twin(d, doc_input_from) for d in ref_docs]
 
 
 def assert_states_equal(ref, got, n_docs):

@@ -37,6 +37,7 @@ import fluidframework_tpu.service.server as ref_server
 import fluidframework_tpu.service.sharding as ref_sharding
 import fluidframework_tpu.service.streamfold as ref_streamfold
 import fluidframework_tpu.testing.faults as ref_faults
+import fluidframework_tpu.testing.load as ref_load
 import fluidframework_tpu.utils.telemetry as ref_telemetry
 import fluidframework_tpu_torch.drivers as port_drivers
 import fluidframework_tpu_torch.drivers.network_driver as port_net
@@ -53,12 +54,13 @@ import fluidframework_tpu_torch.service.server as port_server
 import fluidframework_tpu_torch.service.sharding as port_sharding
 import fluidframework_tpu_torch.service.streamfold as port_streamfold
 import fluidframework_tpu_torch.testing.faults as port_faults
+import fluidframework_tpu_torch.testing.load as port_load
 import fluidframework_tpu_torch.utils.telemetry as port_telemetry
 
 
 def _pkg(name, messages, container, registry, catchup, cache, oplog,
          orderer, retry, server, sharding, streamfold, faults, telemetry,
-         drivers, net, loader, catchup_kw):
+         drivers, net, loader, load, catchup_kw):
     def make_catchup(service, **kw):
         return catchup.CatchupService(service, **catchup_kw, **kw)
 
@@ -96,7 +98,7 @@ def _pkg(name, messages, container, registry, catchup, cache, oplog,
         ShardedOrderingService=sharding.ShardedOrderingService,
         StreamFoldService=streamfold.StreamFoldService,
         FaultInjector=faults.FaultInjector, FaultPlan=faults.FaultPlan,
-        FaultPoint=faults.FaultPoint,
+        FaultPoint=faults.FaultPoint, VirtualClock=load.VirtualClock,
         NetworkDocumentServiceFactory=net.NetworkDocumentServiceFactory,
         Loader=loader.Loader)
 
@@ -104,11 +106,11 @@ def _pkg(name, messages, container, registry, catchup, cache, oplog,
 REF = _pkg("ref", ref_messages, ref_container, ref_registry, ref_catchup,
            ref_cache, ref_oplog, ref_orderer, ref_retry, ref_server,
            ref_sharding, ref_streamfold, ref_faults, ref_telemetry,
-           ref_drivers, ref_net, ref_loader, {"mesh": None})
+           ref_drivers, ref_net, ref_loader, ref_load, {"mesh": None})
 PORT = _pkg("port", port_messages, port_container, port_registry,
             port_catchup, port_cache, port_oplog, port_orderer, port_retry,
             port_server, port_sharding, port_streamfold, port_faults,
-            port_telemetry, port_drivers, port_net, port_loader,
+            port_telemetry, port_drivers, port_net, port_loader, port_load,
             {"device": "cpu"})
 
 
