@@ -125,9 +125,10 @@ port's libraries from the sources in the checkout, and runs in order:
    and matrix main batches, each equal to its one-device entry and
    launching its kernel once a part; M5 phase 7's windows through the
    doc-sharded tiers (bytes beside phase 7's, K6 once a part on the grown
-   pass); M6 ``CatchupService(mesh=...)`` over S1's corpus, equal to S1;
+   pass); M6 ``CatchupService(mesh=...)`` over S1's first 2,048
+   documents, equal to S1;
 14. the out-of-process tier (``frontdoor_phase``): a ``FrontDoor`` over
-   two shard processes on the card, heartbeats on: F1 1,024 documents
+   two shard processes on the card, heartbeats on: F1 512 documents
    written through the door and one ``catchup`` RPC a shard (``cpuDocs``
    0, equal to this process's fold of the logs read back), F3 eight
    documents live-migrated byte-identically, F2 a shard SIGKILLed
@@ -137,8 +138,11 @@ port's libraries from the sources in the checkout, and runs in order:
 15. the scenario engine (``scenarios_phase``, the port's
    ``testing.scenarios`` with ``device=``): W1 the catch-up storm
    (10,000 clients, 128 documents, 4 orderer shards) and its never-shed
-   oracle twin, its storm verdict, and the same spec with
-   ``device="cpu"`` (equal heads and sampled digests; K1 launched); W2
+   oracle twin, its storm verdict (the port's load-generator CLI's
+   ``verdict``), and the same spec with ``device="cpu"`` (equal heads
+   and sampled digests; K1 launched), then the same storm through the
+   CLI's ``main`` (``--storm --device cuda``: its verdict passes, its
+   storm counters equal the in-process run's); W2
    tree-collab at the same size with the fold probe (warm pass served
    resident, K5 launched, equal to the ``device="cpu"`` run); W3 the
    storm against 2 shard processes on the card (equal to its in-process
@@ -148,7 +152,21 @@ port's libraries from the sources in the checkout, and runs in order:
    the card, one ``catchup`` RPC over all of them (K1, K5, K7 and K4
    launched, ``deviceDocs`` all but none), sampled fresh loads equal to
    the seeders' digests;
-17. times — each build of the fold kernel alone (CUDA events behind a
+17. BASELINE.json config #3, SharedString with interval collections
+   (``interval_phase``): I1 2,048 x ``gen_interval_doc(i, 96)`` through
+   both entries (equal, an oracle sample with the ``intervals`` blob, no
+   fallback, bytes equal to the layout's); I2 the stabbing workload at
+   10,240 documents through the five passes of the reference's
+   ``run_interval_stabbing`` with the three tiers (cold, traced for the
+   device busy share; exact; every 8th grown; tiers off;
+   post-invalidation), each pass equal to its twin, bytes equal to the
+   layout's and printed beside the JAX package's CPU counters, an oracle
+   sample of the grown windows, K1 and K6 counted; I3 interval fuzz logs
+   cold and from a base with an ``intervals`` blob, and logs mixing
+   obliterates (the oracle route), on the card against ``device="cpu"``
+   and the oracle; I4 1,024 interval containers through one
+   ``CatchupService`` call, equal to a ``device="cpu"`` fold;
+18. times — each build of the fold kernel alone (CUDA events behind a
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
    resident kernels, the two tree builds, the matrix fold at both shapes
@@ -164,14 +182,15 @@ port's libraries from the sources in the checkout, and runs in order:
 Each driven path (the one-batch entry, the state path, the large-S
 paths, the pipeline, each warm pass, each tree pass, the map and matrix
 entries, each service call, each server RPC, each mesh path, each
-scenario run, the soak's RPC) runs with
+scenario run, the soak's RPC, each interval run) runs with
 every launch count set to 0 just before it and read just after; each
 row of the ``kernels`` line also carries its launches on every service
 call (``service_launches``), every server RPC (``server_launches``),
 every mesh path (``mesh_launches``), every front-door step, counted
 in the shard processes (``frontdoor_launches``), every scenario run
-(``scenario_launches``; W3's shard processes as ``scenario_w3_shards``)
-and the soak's RPC (``soak_launches``).  One JSON object per
+(``scenario_launches``; W3's shard processes as ``scenario_w3_shards``),
+the soak's RPC (``soak_launches``) and every interval run
+(``interval_launches``).  One JSON object per
 phase goes to stdout.  Any failure raises (non-zero exit, no result
 line).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -285,11 +304,16 @@ SRV_R5_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
 #: ``synth_tree_messages``) and the tree oracle sample (every shape)
 MESH_LISTS = {"x2": ["cuda:0", "cuda:0"], "x3": ["cuda:0"] * 3}
 MESH_TREE_DOCS, MESH_TREE_EDITS, MESH_TREE_SAMPLE = 2048, 48, 32
+#: M6's depth: the first documents of S1's corpus (cut from all 10,240 so
+#: that the smoke keeps its time with the interval phase added)
+MESH_SEAM_DOCS = 2048
 #: the frontdoor phase: shard processes, documents written through the
 #: door (S1's streams), the ops each grows by in F2, the documents F3
 #: migrates, the heartbeat interval, one RPC's bound, the container-fold
 #: sample, and where the deployment directory goes (gitignored)
-FD_SHARDS, FD_DOCS, FD_GROW_OPS, FD_MIGRATE = 2, 1024, 16, 8
+#: (F1's depth cut from 1,024 documents so that the smoke keeps its time
+#: with the interval phase added)
+FD_SHARDS, FD_DOCS, FD_GROW_OPS, FD_MIGRATE = 2, 512, 16, 8
 FD_HEARTBEAT, FD_RPC_TIMEOUT, FD_ORACLE_SAMPLE = 1.0, 600.0, 64
 FD_BATCH_DOCS = 64
 FD_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
@@ -300,21 +324,36 @@ FD_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
 #: clients, documents, shards); W3 the storm out of process, its shards
 #: folding in shard processes on the card, at the size of the
 #: process-tier swarm smoke (tests/test_fluidproc.py), and where its
-#: deployment goes (gitignored); the in-process storm gate's p99 bound in
-#: virtual ticks and its floor of sequenced ops a second
-#: (tools/loadgen.py's ``STORM_GATE_P99_TICKS`` and
-#: ``GATES_OPS_PER_SEC["catchup-storm"]``)
+#: deployment goes (gitignored); the storm's gate is the port's
+#: load-generator CLI's (``tools.loadgen.verdict``)
 SCN_SEED, SCN_CLIENTS, SCN_DOCS, SCN_SHARDS = 10, 10_000, 128, 4
 W3_SEED, W3_CLIENTS, W3_DOCS, W3_SHARDS = 12, 1_000, 16, 2
 SCN_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
                        "scenarios")
-STORM_GATE_P99_TICKS = 64.0
-STORM_GATE_OPS_PER_SEC = 250.0
 #: the soak phase (the wire soak of tests/test_tools_and_load.py at its
 #: size): documents, and the bound of the seeding and of the one
 #: ``catchup`` RPC
 SOAK_DOCS = 1024
 SOAK_TIMEOUT = 600.0
+#: the interval phase (BASELINE.json config #3, SharedString with
+#: interval collections): I1 ``gen_interval_doc`` at the reference's size
+#: (tools/bench_configs.py: 2,048 x 96); I2 the stabbing workload
+#: (tools/bench_kernels.py ``run_interval_stabbing``: 10,240 documents,
+#: base windows of IV_OPS - IV_OPS // 8 ops, every GROW_EVERY-th grown to
+#: IV_OPS) and the JAX package's CPU counters for it; I3 interval fuzz
+#: logs (as tests/torch_corpora.interval_docs), IV_FUZZ_DOCS seeds each
+#: plain and with obliterates; I4 interval containers behind the seam,
+#: their base summaries uploaded after IV_SEAM_BASE ops; the oracle
+#: sample (every IV_ORACLE_EVERY-th document) and where the cold pass's
+#: trace goes (gitignored)
+IV_CFG_DOCS, IV_CFG_OPS = 2048, 96
+IV_DOCS, IV_OPS = 10240, 96
+IV_REFERENCE = "BENCH_kernels_cpu_r14.json"
+IV_FUZZ_DOCS = 32
+IV_SEAM_DOCS, IV_SEAM_BASE = 1024, 48
+IV_ORACLE_EVERY = 16
+IV_TRACE_DIR = os.path.join(REPO, "fluidframework_tpu_torch", "build",
+                            "interval_trace")
 #: the launch counters of each row of the ``kernels`` line (the service
 #: and server paths' launches are summed over them)
 ROW_COUNTS = {
@@ -570,29 +609,71 @@ def nbytes(tree):
                    else x.nbytes for x in leaves if x is not None))
 
 
-def expected_transfer(packed):
-    """(h2d, d2h) bytes of a pipelined run worked out from each chunk's
-    layout facts (cold chunks): the op stream in the narrow dtypes when
-    ``i16_ok`` holds (else int32), and the transfer buffer
-    of ``export_layout_rows`` rows (int16 when ``i16_ok``, plus the
-    [D, 4] int32 misc leaf for i8 layouts)."""
+def transfer_row_bytes(meta, S):
+    """(h2d bytes of one op row as it is uploaded, d2h bytes of one
+    document's export) of a packed chunk: the narrow dtypes when
+    ``i16_ok`` holds (else int32), ``pvals`` once a props key; the export's
+    ``export_layout_rows`` rows of S slots (int16 when ``i16_ok``) plus the
+    [4] int32 misc leaf of an i8 layout."""
     import numpy as np
 
     from fluidframework_tpu_torch.ops import mergetree_kernel as mt
 
+    i16, _ob, _ov, i8, _props = mt._export_flags(meta)
+    size = {f: np.dtype(mt._UPLOAD_NARROW_DTYPES[f]).itemsize if i16
+            else 4 for f in mt.MTOps._fields}
+    row = sum(size[f] for f in mt.OP_FIELDS) \
+        + meta["props_K"] * size["pvals"]
+    doc = mt.export_layout_rows(meta) * S * (2 if i16 else 4) \
+        + (4 * 4 if i8 else 0)
+    return row, doc
+
+
+def expected_transfer(packed, tiers=False):
+    """(h2d, d2h) bytes of a pipelined run worked out from each chunk's
+    layout facts (cold chunks): the op stream in the narrow dtypes when
+    ``i16_ok`` holds (else int32), and the transfer buffer of
+    ``export_layout_rows`` rows (int16 when ``i16_ok``, plus the [D, 4]
+    int32 misc leaf for i8 layouts).  With the cache ``tiers`` on, a
+    chunk's first fold also uploads its int32 ``doc_base`` (the resident
+    entry's aux) and downloads the [D, 2] digest plane."""
     h2d = d2h = 0
     for state, ops, meta, S in packed:
         if state is not None:
             raise AssertionError("expected_transfer counts cold chunks")
         D, T = ops.kind.shape
-        K = meta["props_K"]
-        i16, _ob, _ov, i8, _props = mt._export_flags(meta)
-        size = {f: np.dtype(mt._UPLOAD_NARROW_DTYPES[f]).itemsize if i16
-                else 4 for f in mt.MTOps._fields}
-        h2d += D * T * (sum(size[f] for f in mt.OP_FIELDS)
-                        + K * size["pvals"])
-        d2h += D * mt.export_layout_rows(meta) * S * (2 if i16 else 4)
-        d2h += D * 4 * 4 if i8 else 0
+        row, doc = transfer_row_bytes(meta, S)
+        h2d += D * T * row + (D * 4 if tiers else 0)
+        d2h += D * doc + (D * 8 if tiers else 0)
+    return h2d, d2h
+
+
+def expected_grown_transfer(cold_packed, grown_packed, changed, on_card):
+    """(h2d, d2h) bytes of a grown pass over resident chunks, worked out
+    from the layout: per chunk, the suffix splice's upload (each
+    document's new op rows, ``next_bucket_fine`` of the longest suffix and
+    at least 8, in the chunk's upload dtypes, plus the int32 ``t_old`` and
+    count vectors; the full op stream and ``doc_base`` when the bucket
+    reaches the chunk's width); down, the digest plane and the export rows
+    of the ``changed[c]`` documents tier 0 cannot serve, padded on the
+    card to ``next_bucket_fine(m, 8)`` (the whole chunk when that reaches
+    it)."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.ops.interning import next_bucket_fine
+
+    h2d = d2h = 0
+    for (_s0, cold_ops, _m0, _S0), (_s, ops, meta, S), m in zip(
+            cold_packed, grown_packed, changed, strict=True):
+        D, T = ops.kind.shape
+        row, doc = transfer_row_bytes(meta, S)
+        t_old = np.count_nonzero(np.asarray(cold_ops.kind), axis=1)
+        t_new = np.count_nonzero(np.asarray(ops.kind), axis=1)
+        L = min(next_bucket_fine(max(int((t_new - t_old).max()), 1),
+                                 floor=8), T)
+        h2d += D * L * row + 2 * D * 4 if L < T else D * T * row + D * 4
+        pad = min(next_bucket_fine(m, floor=8), D) if on_card and m else m
+        d2h += D * 8 + pad * doc
     return h2d, d2h
 
 
@@ -2734,7 +2815,8 @@ def mesh_phase(dev, drive, launches, docs, one_device, oracle, sample,
       windows, bytes beside phase 7's, the exact pass moving nothing up,
       the grown pass splicing each part once (K6);
     - M6: ``CatchupService(mesh=doc_mesh(x2), device=...)`` over a fresh
-      build of S1's corpus, equal to S1's results.
+      build of S1's first ``MESH_SEAM_DOCS`` documents, equal to S1's
+      results for them.
 
     Returns the driven paths."""
     import torch
@@ -2887,17 +2969,20 @@ def mesh_phase(dev, drive, launches, docs, one_device, oracle, sample,
 
     # -- M6: the seam on the mesh over a fresh build of S1's corpus --------
     service = LocalOrderingService()
-    ids = sw.build_catchup_corpus(service, N_DOCS, N_OPS)
+    ids = sw.build_catchup_corpus(service, MESH_SEAM_DOCS, N_OPS)
     svc = CatchupService(service, mesh=mesh, device=dev)
     stats = {}
     res, wall = sharded("mesh_m6", lambda: svc.catch_up(
         ids, upload=False, stats=stats))
-    same = {d: h for d, (h, _s) in res.items()} == s1_digests
-    emit({"phase": "mesh_m6", "devices": MESH_LISTS["x2"], "docs": N_DOCS,
-          "ops": n_ops, "wall_s": wall, "ops_per_s": n_ops / wall,
-          "launches": launches["mesh_m6"], "stats": stats,
-          "stage": svc.pipeline_stage, "equals_s1": same})
-    check(same and stats["deviceDocs"] == N_DOCS and stats["cpuDocs"] == 0,
+    same = {d: h for d, (h, _s) in res.items()} == {
+        d: s1_digests[d] for d in ids}
+    m6_ops = MESH_SEAM_DOCS * N_OPS
+    emit({"phase": "mesh_m6", "devices": MESH_LISTS["x2"],
+          "docs": MESH_SEAM_DOCS, "ops": m6_ops, "wall_s": wall,
+          "ops_per_s": m6_ops / wall, "launches": launches["mesh_m6"],
+          "stats": stats, "stage": svc.pipeline_stage, "equals_s1": same})
+    check(same and stats["deviceDocs"] == MESH_SEAM_DOCS
+          and stats["cpuDocs"] == 0,
           f"M6: results differ from S1's ({stats})")
     per_part("mesh_m6", mesh, "mergetree_fold_export_smem")
     del service, svc, res
@@ -3232,45 +3317,24 @@ def frontdoor_phase(dev, drive, launches):
     return shard_launches
 
 
-def storm_verdict(spec, result, oracle, wall):
-    """The in-process storm gate of the JAX package's ``tools/loadgen.py``
-    (which imports that package, so it is restated here): at least
-    ``STORM_GATE_OPS_PER_SEC`` sequenced ops a second over the run's
-    ``wall``, every request served, the admission lane balanced (admitted
-    + shed + degraded = requests), every planned fault seen, p99 storm
-    latency within ``STORM_GATE_P99_TICKS``, and the never-shed oracle
-    twin's state byte-identical."""
-    storm = result.storm
-    adm = storm.get("admission")
-    out = {
-        "rate_ok": result.sequenced_ops / wall >= STORM_GATE_OPS_PER_SEC,
-        "served_all": storm["served"] == storm["requests"] > 0,
-        "admission_balance_ok": adm is None or (
-            adm["catchup.requests"] == adm["catchup.admitted"]
-            + adm["catchup.shed"] + adm["catchup.degraded"]),
-        "fault_coverage_ok": spec.plan is None or all(
-            result.fault_counts.get(f"{p.site}:{p.kind}", 0) > 0
-            for p in spec.plan.points),
-        "p99_ok": storm["latency_p99_ticks"] <= STORM_GATE_P99_TICKS,
-        "oracle_match": result.sampled_digests == oracle.sampled_digests
-        and result.per_doc_head == oracle.per_doc_head,
-    }
-    out["passed"] = all(out.values())
-    return out
-
-
 def scenarios_phase(dev, drive, launches):
     """Phase 15: the port's scenario engine (``testing.scenarios``) with
     every fold on the card, each run a driven path:
 
     - W1: the catch-up storm (10,000 clients, 128 documents, 4 orderer
       shards) and its never-shed oracle twin through
-      ``run_swarm_with_oracle(spec, device=...)``: the storm's real
+      ``run_swarm(spec, device=...)``: the storm's real
       ``OrderingServer`` folds each elected catch-up on the card (K1; K7
-      for the map channel).  Gated on the storm verdict, the twin's
-      ``sampled_digests`` and ``per_doc_head``, and a third run of the
-      same spec with ``device="cpu"`` (the plain folds) giving the same
-      digests;
+      for the map channel).  Gated on the storm verdict of the port's
+      load-generator CLI (``tools.loadgen.verdict``: its rate floor,
+      every request served, the admission balance, every planned fault
+      seen, the p99 bound, the twin's ``sampled_digests`` and
+      ``per_doc_head``), and a third run of the same spec with
+      ``device="cpu"`` (the plain folds) giving the same digests; then
+      the same storm as a user runs it,
+      ``python -m fluidframework_tpu_torch.tools.loadgen --storm --device
+      cuda`` (its ``main``, in this process), whose verdict must pass and
+      whose storm counters must equal the in-process run's;
     - W2: tree-collab at the same size with the fold probe: a
       ``CatchupService`` on the card catches the sampled documents up
       cold, then warm from the resident tier (K5 for the trees), equal
@@ -3289,6 +3353,7 @@ def scenarios_phase(dev, drive, launches):
 
     from fluidframework_tpu_torch.testing.scenarios import (
         build_scenario, oracle_spec, run_swarm)
+    from fluidframework_tpu_torch.tools import loadgen
 
     paths = []
 
@@ -3330,7 +3395,11 @@ def scenarios_phase(dev, drive, launches):
     r1, wall1 = driven("scenario_w1", spec1)
     o1, wall1o = driven("scenario_w1_oracle", oracle_spec(spec1, r1))
     c1, wall1c = on_cpu(spec1)
-    verdict1 = storm_verdict(spec1, r1, o1, wall1)
+    verdict1 = loadgen.verdict(
+        r1, wall1, loadgen.GATES_OPS_PER_SEC["catchup-storm"],
+        oracle_match=r1.sampled_digests == o1.sampled_digests
+        and r1.per_doc_head == o1.per_doc_head,
+        storm_report=loadgen.storm_record(spec1, r1))
     emit({"phase": "scenarios_w1", "scenario": "catchup-storm",
           "seed": SCN_SEED, "clients": SCN_CLIENTS, "docs": SCN_DOCS,
           "shards": SCN_SHARDS, **record(r1, wall1),
@@ -3343,11 +3412,49 @@ def scenarios_phase(dev, drive, launches):
           "launches": launches["scenario_w1"],
           "oracle_launches": launches["scenario_w1_oracle"]})
     check(verdict1["passed"], f"W1 storm verdict {verdict1}")
+    check(r1.storm["requests"] > 0
+          and r1.storm["latency_p99_ticks"] is not None,
+          f"W1 stormed no catch-up: {r1.storm}")
     check(c1.sampled_digests == r1.sampled_digests
           and c1.per_doc_head == r1.per_doc_head,
           "W1: the card's run and the plain folds' run differ")
     check(launched("scenario_w1", *k1) >= 1,
           f"W1 launched no K1: {launches['scenario_w1']}")
+
+    # -- W1 through the port's CLI, as a user runs it --------------------------
+    os.makedirs(SCN_DIR, exist_ok=True)
+    cli_out = os.path.join(SCN_DIR, "w1_cli.json")
+    rc, cli_wall = drive("scenario_w1_cli", lambda: loadgen.main([
+        "--scenario", "catchup-storm", "--storm", "--seed", str(SCN_SEED),
+        "--clients", str(SCN_CLIENTS), "--docs", str(SCN_DOCS),
+        "--shards", str(SCN_SHARDS), "--device", str(dev),
+        "--out", cli_out]))
+    paths.append("scenario_w1_cli")
+    with open(cli_out) as f:
+        cli = json.load(f)
+    cli_run = cli["scenarios"]["catchup-storm"]
+    counter_keys = ("requests", "served", "warm", "folds", "shed",
+                    "degraded", "retries", "fold_errors",
+                    "latency_p99_ticks")
+    cli_counters = {k: cli_run["storm"][k] for k in counter_keys}
+    run_counters = {k: r1.storm.get(k) for k in counter_keys}
+    emit({"phase": "scenarios_w1_cli", "rc": rc, "wall_s": cli_wall,
+          "run_wall_s": cli_run["wall_sec"],
+          "ops_per_sec": cli_run["ops_per_sec"],
+          "gate_ops_per_sec": cli_run["gate_ops_per_sec"],
+          "platform": cli["platform"], "passed": cli_run["passed"],
+          "oracle_match": cli_run["oracle_match"],
+          "storm": cli_counters, "in_process": run_counters,
+          "sequenced_ops": [cli_run["sequenced_ops"], r1.sequenced_ops],
+          "launches": launches["scenario_w1_cli"]})
+    check(rc == 0 and cli_run["passed"] and cli_run["oracle_match"],
+          f"W1 through the CLI: rc {rc}, passed {cli_run['passed']}")
+    check(cli_counters == run_counters
+          and cli_run["sequenced_ops"] == r1.sequenced_ops,
+          f"W1 through the CLI: {cli_counters} != {run_counters}")
+    check(launched("scenario_w1_cli", *k1) >= 1,
+          f"W1 through the CLI launched no K1: "
+          f"{launches['scenario_w1_cli']}")
     del r1, o1, c1
 
     # -- W2: tree-collab with the fold probe ---------------------------------
@@ -3507,6 +3614,428 @@ def soak_phase(dev, drive, launches):
     del server
     torch.cuda.empty_cache()
     return ["soak"]
+
+
+def build_interval_containers(service, n_docs, n_ops, base_at):
+    """I4's corpus (neither package has a builder of it): ``n_docs``
+    containers, each one datastore with one ``SharedString`` channel
+    carrying an interval collection.  Each gets the empty seeded summary
+    at seq 0 and config #3's stream (``gen_interval_doc(i, n_ops)``) in the
+    runtime's groupedBatch envelope; a ``ContainerRuntime`` folds the first
+    ``base_at`` ops and its summary (body, header and ``intervals`` blob)
+    is uploaded at that seq, the base a catch-up starts from, with the
+    later ops the tail.  Returns the doc ids and how many bases carry an
+    ``intervals`` blob."""
+    from fluidframework_tpu_torch.runtime.container import ContainerRuntime
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+    from fluidframework_tpu_torch.testing import service_workload as sw
+
+    seed_tree = sw._seed_summary("sequence-tpu", "text")
+    ids, with_blob = [], 0
+    for i in range(n_docs):
+        doc_id = f"ivc{i}"
+        msgs = [sw._grouped(m, "text", m.min_seq)
+                for m in cw.gen_interval_doc(i, n_ops).ops]
+        service.storage.upload(doc_id, seed_tree, 0)
+        runtime = ContainerRuntime()
+        runtime.load(seed_tree)
+        for m in msgs[:base_at]:
+            runtime.process(m)
+        base = runtime.summarize()
+        service.storage.upload(doc_id, base, msgs[base_at - 1].seq)
+        channel = base.children[".datastores"].children["ds"] \
+            .children["text"]
+        with_blob += "intervals" in channel.children
+        for m in msgs:
+            service.oplog.append(doc_id, m)
+        ids.append(doc_id)
+    return ids, with_blob
+
+
+def interval_fuzz_docs(n_docs, obliterate=False):
+    """I3's documents: interval fuzz logs of the port's own harness
+    (``StringFuzzSpec(intervals=True)``, 3 clients, 25 rounds, as
+    tests/torch_corpora.interval_docs; concurrent, so their chunk keeps
+    the obliterate and overlap rows), each cold and as a base summary at
+    its middle (body and ``intervals`` blob) plus the tail.  With
+    ``obliterate`` the spec also obliterates: the documents whose logs mix
+    both kinds (the pre-pack oracle route)."""
+    import json as json_
+
+    from fluidframework_tpu_torch.dds.sequence import SharedString
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+    from fluidframework_tpu_torch.testing import fuzz, mocks
+
+    spec = fuzz.StringFuzzSpec(intervals=True, obliterate=obliterate)
+    cold, warm = [], []
+    for seed in range(n_docs):
+        _r, factory = fuzz.run_fuzz(spec, seed=900 + seed, n_clients=3,
+                                    rounds=25)
+        ops = mocks.channel_log(factory, "fuzz")
+        final_seq = factory.sequencer.seq
+        final_msn = factory.sequencer.min_seq
+        cold.append(mt.MergeTreeDocInput(
+            doc_id=f"ivf{seed}", ops=ops, final_seq=final_seq,
+            final_msn=final_msn))
+        mid_seq = ops[len(ops) // 2].seq
+        partial = SharedString("fuzz")
+        for m in ops:
+            if m.seq <= mid_seq:
+                partial.process(m, local=False)
+        summary = partial.summarize()
+        intervals = (json_.loads(summary.blob_bytes("intervals"))
+                     if "intervals" in summary.children else None)
+        warm.append(mt.MergeTreeDocInput(
+            doc_id=f"ivw{seed}", ops=[m for m in ops if m.seq > mid_seq],
+            base_records=json_.loads(summary.blob_bytes("body")),
+            base_seq=partial.tree.current_seq,
+            base_msn=partial.tree.min_seq, base_intervals=intervals,
+            final_seq=final_seq, final_msn=final_msn))
+    return cold, warm
+
+
+def interval_phase(dev, drive, launches):
+    """Phase 17: BASELINE.json config #3, SharedString with interval
+    collections, on the card; each run a driven path:
+
+    - I1: ``gen_interval_doc`` at the reference's size (2,048 x 96)
+      through ``pipelined_mergetree_replay`` and ``replay_mergetree_batch``:
+      every summary equal between the two, every 16th document
+      byte-identical to the ``SharedString`` oracle (its ``intervals``
+      blob included), no fallback, the bytes equal to the layout's, K1
+      once a chunk and once;
+    - I2: the stabbing workload as the reference's
+      ``run_interval_stabbing`` sets it up (10,240 documents, base windows
+      of 84 ops, every 8th grown to 96) through the pipeline with the
+      three cache tiers: cold (traced under ``torch.profiler`` for the
+      device busy share), exact, grown, tiers off and post-invalidation,
+      each pass equal to the pass it is checked against, the bytes equal
+      to the layout's (cold, exact, tiers off and post-invalidation:
+      ``expected_transfer``; grown: ``expected_grown_transfer``) and
+      printed beside the JAX package's CPU counters, every 16th grown
+      document byte-identical to the oracle, K1 and K6 counted;
+    - I3: interval fuzz logs, cold and as a base with an ``intervals``
+      blob plus a tail, through both entries on the card against the
+      ``device="cpu"`` fold and the oracle; documents mixing intervals
+      with obliterate take the pre-pack oracle route on the card too;
+    - I4: 1,024 interval containers behind ``CatchupService``: one
+      ``catch_up`` on the card from base summaries carrying ``intervals``
+      blobs, every summary equal to a ``device="cpu"`` fold of the same
+      service.
+
+    Returns the driven paths."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.convert import tensors_to
+    from fluidframework_tpu_torch.ops import fold_cuda
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+    from fluidframework_tpu_torch.ops.device_cache import DevicePackCache
+    from fluidframework_tpu_torch.ops.pipeline import (
+        PackCache, pipelined_mergetree_replay)
+    from fluidframework_tpu_torch.service import LocalOrderingService
+    from fluidframework_tpu_torch.service.catchup import (
+        CatchupService, torch_profiler_trace)
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+    from fluidframework_tpu_torch.testing import workload
+
+    paths = []
+    # launches are counted on the card only (a rehearsal on the CPU runs
+    # the plain versions)
+    on_card = dev.type == "cuda"
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"interval: {what}")
+
+    def digests(summaries):
+        return [s.digest() for s in summaries]
+
+    def k1(path):
+        return {k: v for k, v in launches[path].items()
+                if k.startswith("fold_export")}
+
+    def oracle_misses(docs, got, every):
+        return [docs[i].doc_id for i in range(0, len(docs), every)
+                if workload.oracle_replay(docs[i]).summarize().digest()
+                != got[i]]
+
+    def pipeline(path, docs, trace_dir=None, **tiers):
+        stage, stats, packed = {}, {}, []
+
+        def run():
+            return pipelined_mergetree_replay(
+                docs, chunk_docs=CHUNK_DOCS, stats=stats, stage=stage,
+                packed_out=packed, device=dev, **tiers)
+
+        if trace_dir is None:
+            got, wall = drive(path, run)
+        else:
+            with torch_profiler_trace(trace_dir, dev):
+                got, wall = drive(path, run)
+        paths.append(path)
+        return digests(got), {
+            "wall_s": wall, "busy_s": {k: v for k, v in stage.items()
+                                       if not k.endswith("_bytes")},
+            "h2d_bytes": stage["h2d_bytes"], "d2h_bytes": stage["d2h_bytes"],
+            "stats": stats, "chunks": len(packed),
+            "launches": launches[path]}, packed
+
+    def k1_parity(packed):
+        """The fold+export build against the plain decode, fold, export
+        and digest on each chunk's uploaded inputs, digest off and on."""
+        err = 0
+        for _s, ops, meta, S in packed:
+            o = tensors_to(ops, dev)
+            base = torch.from_numpy(meta["doc_base"]).to(dev)
+            layout = mt._export_flags(meta)
+            for digest in (False, True):
+                err = max(err, leaves_diff(
+                    mt.export_reference(None, o, base, layout, digest, S=S),
+                    fold_cuda.fold_export(None, o, base, layout, digest,
+                                          S=S)))
+        return err
+
+    def batch(path, docs):
+        stats = {}
+        got, wall = drive(path, lambda: mt.replay_mergetree_batch(
+            docs, stats=stats, device=dev))
+        paths.append(path)
+        return digests(got), {"wall_s": wall, "stats": stats,
+                              "launches": launches[path]}
+
+    # -- I1: config #3 at the reference's size -------------------------------
+    t = time.perf_counter()
+    docs = [cw.gen_interval_doc(i, IV_CFG_OPS) for i in range(IV_CFG_DOCS)]
+    gen_s = time.perf_counter() - t
+    n_iv = sum(1 for d in docs for m in d.ops
+               if m.contents["kind"].startswith("interval"))
+    p_dig, p_rec, packed = pipeline("interval_i1_pipeline", docs)
+    b_dig, b_rec = batch("interval_i1_batch", docs)
+    want = expected_transfer(packed)
+    i1_err = k1_parity(packed)
+    t = time.perf_counter()
+    bad = oracle_misses(docs, p_dig, IV_ORACLE_EVERY)
+    oracle_s = time.perf_counter() - t
+    ops_n = IV_CFG_DOCS * IV_CFG_OPS
+    emit({"phase": "interval_i1", "docs": IV_CFG_DOCS, "ops": ops_n,
+          "interval_ops": n_iv, "gen_s": gen_s, "pipeline": p_rec,
+          "ops_per_s": ops_n / p_rec["wall_s"], "batch": b_rec,
+          "layouts": [mt._export_flags(m) for _s, _o, m, _t in packed],
+          "bytes_expected": want, "equals_batch": p_dig == b_dig,
+          "k1_max_abs_err": i1_err,
+          "oracle_sample": len(range(0, IV_CFG_DOCS, IV_ORACLE_EVERY)),
+          "oracle_mismatches": bad, "oracle_s": oracle_s})
+    check(p_dig == b_dig, "I1: the pipeline and the one batch differ")
+    check(i1_err == 0, f"I1: fold+export != plain ({i1_err})")
+    check(not bad, f"I1: summaries differ from the oracle at {bad[:8]}")
+    for rec in (p_rec, b_rec):
+        check(rec["stats"].get("fallback_docs", 0) == 0
+              and rec["stats"]["device_docs"] == IV_CFG_DOCS,
+              f"I1 routing {rec['stats']}")
+    check((p_rec["h2d_bytes"], p_rec["d2h_bytes"]) == want,
+          f"I1 bytes {p_rec['h2d_bytes']} / {p_rec['d2h_bytes']}, "
+          f"layout {want}")
+    check(not on_card or sum(k1("interval_i1_pipeline").values())
+          == len(packed) and sum(k1("interval_i1_batch").values()) == 1,
+          f"I1 K1 launches {k1('interval_i1_pipeline')} / "
+          f"{k1('interval_i1_batch')}")
+    del docs
+
+    # -- I2: the stabbing workload through the three tiers ------------------
+    with open(os.path.join(REPO, IV_REFERENCE)) as f:
+        ref = json.load(f)["interval_stabbing"]
+    t = time.perf_counter()
+    grow = IV_OPS // 8
+    base = [cw.synth_interval_doc(i, IV_OPS, n_msgs=IV_OPS - grow)
+            for i in range(IV_DOCS)]
+    grown_idx = set(range(0, IV_DOCS, GROW_EVERY))
+    # a document that does not grow keeps its base window
+    grown = [cw.synth_interval_doc(i, IV_OPS) if i in grown_idx else base[i]
+             for i in range(IV_DOCS)]
+    gen_s = time.perf_counter() - t
+    n_iv = sum(1 for d in base for m in d.ops
+               if m.contents["kind"].startswith("interval"))
+    pack, resident, delta = PackCache(), DevicePackCache(device=dev), \
+        DeltaExportCache()
+    on = {"pack_cache": pack, "device_cache": resident,
+          "delta_cache": delta}
+    passes, dig = {}, {}
+    shutil.rmtree(IV_TRACE_DIR, ignore_errors=True)
+    dig["cold"], passes["cold"], cold_packed = pipeline(
+        "interval_cold", base, IV_TRACE_DIR, **on)
+    dig["exact"], passes["exact"], _ = pipeline("interval_exact", base, **on)
+    dig["grown"], passes["grown"], grown_packed = pipeline(
+        "interval_grown", grown, **on)
+    grown_tiers = {k: v.stats() for k, v in on.items()}
+    # the spliced resident op planes against the grown chunks' uploaded
+    # arrays (what a plain upload would hold), every plane bit for bit
+    k6_err = max(tree_diff(mt.MTOps(*(torch.from_numpy(
+        np.ascontiguousarray(x)).to(dev) for x in host_ops)),
+        resident._entries[tuple(d.cache_token for d in meta["docs"])].ops)
+        for _s, host_ops, meta, _t in grown_packed)
+    i2_err = k1_parity(cold_packed[:1])
+    dig["off"], passes["off"], off_packed = pipeline("interval_off", grown)
+    delta.invalidate_epoch("other-epoch")
+    resident.invalidate_epoch("other-epoch")
+    dig["inval"], passes["inval"], inval_packed = pipeline(
+        "interval_inval", grown, **on)
+    chunks = len(cold_packed)
+    changed = [sum(1 for i in grown_idx
+                   if c * CHUNK_DOCS <= i < (c + 1) * CHUNK_DOCS)
+               for c in range(chunks)]
+    want = {"cold": expected_transfer(cold_packed, tiers=True),
+            "exact": (0, 8 * IV_DOCS),
+            "grown": expected_grown_transfer(cold_packed, grown_packed,
+                                             changed, dev.type == "cuda"),
+            "off": expected_transfer(off_packed),
+            "inval": expected_transfer(inval_packed, tiers=True)}
+    ref_name = {"cold": "cold", "exact": "warm_exact", "grown": "warm_grown",
+                "off": "caches_off", "inval": "post_invalidation"}
+    for name, rec in passes.items():
+        got = (rec["h2d_bytes"], rec["d2h_bytes"])
+        r = ref[ref_name[name]]
+        rec.update(bytes_expected=want[name], bytes_equal=got == want[name],
+                   reference={"h2d_bytes": r["h2d_bytes"],
+                              "d2h_bytes": r["d2h_bytes"],
+                              "stats": r["stats"]},
+                   equals_reference=got == (r["h2d_bytes"], r["d2h_bytes"])
+                   and rec["stats"] == r["stats"],
+                   k1=sum(k1(f"interval_{name}").values()),
+                   k6={k: launches[f"interval_{name}"][k]
+                       for k in ("splice_rows", "widen_resident")})
+        emit({"phase": "interval_pass", "pass": name, **rec})
+    trace = trace_device_seconds(IV_TRACE_DIR)
+    kernel_s = trace["seconds"]["kernel"]
+    t = time.perf_counter()
+    bad = oracle_misses(grown, dig["grown"], IV_ORACLE_EVERY)
+    oracle_s = time.perf_counter() - t
+    agree = {"exact=cold": dig["exact"] == dig["cold"],
+             "off=grown": dig["off"] == dig["grown"],
+             "inval=grown": dig["inval"] == dig["grown"]}
+    emit({"phase": "interval_stabbing", "docs": IV_DOCS, "ops": IV_OPS,
+          "base_ops": IV_OPS - grow, "grown_docs": len(grown_idx),
+          "interval_ops": n_iv, "reference_interval_ops":
+              ref["interval_ops"], "gen_s": gen_s, "agree": agree,
+          "walls_s": {k: v["wall_s"] for k, v in passes.items()},
+          "grown_tiers": grown_tiers, "k1_max_abs_err": i2_err,
+          "resident_vs_grown_max_abs_err": k6_err,
+          "tiers": {k: v.stats() for k, v in on.items()},
+          "reference_tiers": {k: ref[k] for k in (
+              "pack_cache", "device_cache", "delta_cache")},
+          "oracle_sample": len(range(0, IV_DOCS, IV_ORACLE_EVERY)),
+          "oracle_mismatches": bad, "oracle_s": oracle_s,
+          "cold_busy": {"device_busy_share": kernel_s
+                        / passes["cold"]["wall_s"],
+                        "device_busy_share_with_copies":
+                            sum(trace["seconds"].values())
+                            / passes["cold"]["wall_s"], **trace}})
+    check(IV_DOCS != ref["docs"] or n_iv == ref["interval_ops"],
+          f"I2 generated {n_iv} interval ops, the reference "
+          f"{ref['interval_ops']}")
+    check(all(agree.values()), f"I2 passes disagree: {agree}")
+    check(i2_err == 0 and k6_err == 0, f"I2: fold+export != plain "
+          f"({i2_err}) or the spliced resident planes differ ({k6_err})")
+    check(not bad, f"I2 grown summaries differ from the oracle at {bad[:8]}")
+    for name, rec in passes.items():
+        check(rec["bytes_equal"], f"I2 {name} bytes "
+              f"{rec['h2d_bytes']} / {rec['d2h_bytes']}, layout "
+              f"{rec['bytes_expected']}")
+        check(rec["stats"].get("fallback_docs", 0) == 0,
+              f"I2 {name} fell back: {rec['stats']}")
+        check(not on_card or rec["k1"] == chunks,
+              f"I2 {name}: K1 {rec['k1']} launches "
+              f"for {chunks} chunks")
+    check(passes["grown"]["stats"].get("delta_docs") == IV_DOCS
+          - len(grown_idx) and passes["grown"]["stats"]["device_docs"]
+          == len(grown_idx), f"I2 grown routing {passes['grown']['stats']}")
+    check(grown_tiers["device_cache"]["spliced"] == chunks
+          and (not on_card or passes["grown"]["k6"]["splice_rows"] >= 1),
+          f"I2 grown: the resident tier did not splice every chunk "
+          f"({grown_tiers['device_cache']}, {passes['grown']['k6']})")
+    check(not on_card or kernel_s > 0,
+          "the cold pass's trace holds no CUDA kernel time")
+    del base, grown, cold_packed, grown_packed, off_packed, inval_packed
+    del pack, resident, delta, on
+    torch.cuda.empty_cache()
+
+    # -- I3: the hard cases --------------------------------------------------
+    cold, warm = interval_fuzz_docs(IV_FUZZ_DOCS)
+    mixed, _ = interval_fuzz_docs(IV_FUZZ_DOCS, obliterate=True)
+    mixed = [d for d in mixed if mt.known_oracle_fallback(d)]
+    check(mixed, "I3: no fuzz log mixes intervals with an obliterate")
+    check(sum(d.base_intervals is not None for d in warm) > 0,
+          "I3: no base carries an intervals blob")
+    hard = {}
+    for label, docs in (("cold", cold), ("warm", warm), ("mixed", mixed)):
+        want = [mt.oracle_fallback_summary(d).digest() for d in docs]
+        cpu_stats = {}
+        cpu = digests(mt.replay_mergetree_batch(docs, stats=cpu_stats,
+                                                device="cpu"))
+        b_dig, b_rec = batch(f"interval_i3_{label}_batch", docs)
+        p_dig, p_rec, packed = pipeline(f"interval_i3_{label}_pipeline",
+                                        docs)
+        hard[label] = {
+            "docs": len(docs), "batch": b_rec, "pipeline": p_rec,
+            "cpu_stats": cpu_stats,
+            "layouts": [mt._export_flags(m) for _s, _o, m, _t in packed],
+            "with_base_intervals": sum(d.base_intervals is not None
+                                       for d in docs),
+            "equal_cpu": b_dig == cpu == p_dig,
+            "oracle_mismatches": [docs[i].doc_id for i in range(len(docs))
+                                  if b_dig[i] != want[i]]}
+        check(hard[label]["equal_cpu"] and not
+              hard[label]["oracle_mismatches"],
+              f"I3 {label}: card / cpu / oracle differ {hard[label]}")
+        # concurrent logs can overflow the device's two remover slots
+        # (the post-fold fallback, as on the CPU); a mixed log never packs
+        check(b_rec["stats"] == p_rec["stats"] == cpu_stats
+              and (label != "mixed"
+                   or cpu_stats.get("fallback_docs") == len(docs)),
+              f"I3 {label} routing {b_rec['stats']} / {p_rec['stats']} / "
+              f"{cpu_stats}")
+    emit({"phase": "interval_hard", **hard})
+
+    # -- I4: interval containers behind the seam ------------------------------
+    service = LocalOrderingService()
+    t = time.perf_counter()
+    ids, with_blob = build_interval_containers(
+        service, IV_SEAM_DOCS, IV_CFG_OPS, IV_SEAM_BASE)
+    build_s = time.perf_counter() - t
+    svc = CatchupService(service, device=dev)
+    res, wall = drive("interval_seam", lambda: svc.catch_up(
+        ids, upload=False))
+    paths.append("interval_seam")
+    t = time.perf_counter()
+    plain_svc = CatchupService(service, mesh=None, cache=None,
+                               device="cpu")
+    plain = plain_svc.catch_up(ids, upload=False)
+    plain_s = time.perf_counter() - t
+    differ = sorted(d for d in ids if res.get(d) != plain.get(d))
+    emit({"phase": "interval_seam", "docs": IV_SEAM_DOCS,
+          "base_at": IV_SEAM_BASE, "bases_with_intervals": with_blob,
+          "build_s": build_s, "wall_s": wall, "plain_s": plain_s,
+          "deviceDocs": svc.device_docs, "cpuDocs": svc.cpu_docs,
+          "plain_deviceDocs": plain_svc.device_docs,
+          "mismatches": len(differ), "stage": svc.pipeline_stage,
+          "stats": svc.pipeline_stats,
+          "launches": launches["interval_seam"]})
+    check(with_blob > IV_SEAM_DOCS // 2,
+          f"I4: {with_blob} bases carry an intervals blob")
+    check(len(res) == IV_SEAM_DOCS and not differ,
+          f"I4: {len(differ)} summaries differ from the plain fold's: "
+          f"{differ[:8]}")
+    check(svc.device_docs == IV_SEAM_DOCS and svc.cpu_docs == 0,
+          f"I4 deviceDocs {svc.device_docs} / cpuDocs {svc.cpu_docs}")
+    check(not on_card or sum(k1("interval_seam").values()) >= 1,
+          f"I4 launched no K1: {launches['interval_seam']}")
+    del svc, plain_svc, service
+    torch.cuda.empty_cache()
+    return paths
 
 
 def main() -> int:
@@ -3872,7 +4401,10 @@ def main() -> int:
     # -- 16. the wire soak --------------------------------------------------
     soak_paths = soak_phase(dev, drive, launches)
 
-    # -- 17. times ---------------------------------------------------------
+    # -- 17. the interval configuration --------------------------------------
+    interval_paths = interval_phase(dev, drive, launches)
+
+    # -- 18. times ---------------------------------------------------------
     ms, runs = time_call(lambda: fold_cuda.fold(state, ops))
     call_ms, _ = time_call(lambda: fold_cuda.fold(state, ops), spin=False)
     bound = bound_ms(state, ops, state_out_bytes(D, S, T, K))
@@ -3985,6 +4517,9 @@ def main() -> int:
         r["soak_launches"] = {
             path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
             for path in soak_paths}
+        r["interval_launches"] = {
+            path: sum(launches[path][k] for k in ROW_COUNTS[r["name"]])
+            for path in interval_paths}
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

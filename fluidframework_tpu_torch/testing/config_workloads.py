@@ -1,11 +1,14 @@
-"""The SharedMap and SharedMatrix workloads of BASELINE.json (configs #2
-and #4), with no JAX import.
+"""The SharedMap, interval and SharedMatrix workloads of BASELINE.json
+(configs #2, #3 and #4), with no JAX import.
 
-``gen_map_doc`` and ``gen_matrix_doc`` are copies of the reference
-harness's generators (``tools/bench_configs.py``): the same RNG draws and
-the same messages, as the port's ``MapDocInput`` / ``MatrixDocInput``.
-Every message rides a fully sequential view (``ref_seq = seq - 1``), so
-these workloads never resolve in a lagging view; the committed fixtures
+``gen_map_doc``, ``gen_interval_doc`` and ``gen_matrix_doc`` are copies
+of the reference harness's generators (``tools/bench_configs.py``), and
+``synth_interval_doc`` of its interval stabbing workload
+(``tools/bench_kernels.py``): the same RNG draws and the same messages,
+as the port's ``MapDocInput`` / ``MergeTreeDocInput`` /
+``MatrixDocInput``.  Every message rides a fully sequential view
+(``ref_seq = seq - 1``), so these workloads never resolve in a lagging
+view; the committed fixtures
 (``hard_map_docs.json``, ``hard_matrix_docs.json``, read by ``hard_*``
 below) carry the concurrent cases, and ``crafted_map_docs`` /
 ``crafted_matrix_doc`` the edge cases the kernels must get right;
@@ -22,6 +25,7 @@ from typing import List
 
 from ..ops.map_kernel import MapDocInput
 from ..ops.matrix_kernel import MatrixDocInput
+from ..ops.mergetree_kernel import MergeTreeDocInput
 from ..protocol.messages import MessageType, SequencedMessage
 from ..protocol.summary import SummaryTree
 
@@ -57,6 +61,113 @@ def gen_map_doc(idx: int, n_ops: int) -> MapDocInput:
             contents = {"kind": "clear"}
         ops.append(_msg(seq, client, contents))
     return MapDocInput(doc_id=f"map{idx}", ops=ops)
+
+
+ALPHABET = "abcdefghijklmnopqrstuvwxyz "
+
+
+def gen_interval_doc(idx: int, n_ops: int) -> MergeTreeDocInput:
+    """Config #3: text traffic carrying a live interval population —
+    adds/changes/deletes against sliding local references (message-list
+    ingestion; interval ops never ride the binary stream)."""
+    rng = random.Random(idx * 9973 + 29)
+    ops, length = [], 0
+    live: list = []
+    for i in range(n_ops):
+        seq = i + 1
+        client = f"client{i % 3}"
+        r = rng.random()
+        if r < 0.5 or length < 8:
+            pos = rng.randint(0, length)
+            text = "".join(
+                rng.choice(ALPHABET) for _ in range(rng.randint(1, 8))
+            )
+            contents = {"kind": "insert", "pos": pos, "text": text}
+            length += len(text)
+        elif r < 0.7:
+            start = rng.randint(0, length - 2)
+            end = min(length, start + rng.randint(1, 8))
+            contents = {"kind": "remove", "start": start, "end": end}
+            length -= end - start
+        elif r < 0.85 or not live:
+            iid = f"iv{idx}-{seq}"
+            start = rng.randint(0, length - 2)
+            end = min(length - 1, start + rng.randint(1, 12))
+            contents = {"kind": "intervalAdd", "label": "default",
+                        "id": iid, "start": start, "end": end,
+                        "props": {"c": rng.randint(0, 5)}}
+            live.append(iid)
+        elif r < 0.95:
+            iid = rng.choice(live)
+            start = rng.randint(0, length - 2)
+            contents = {"kind": "intervalChange", "label": "default",
+                        "id": iid, "start": start,
+                        "end": min(length - 1, start + rng.randint(1, 12))}
+        else:
+            iid = live.pop(rng.randrange(len(live)))
+            contents = {"kind": "intervalDelete", "label": "default",
+                        "id": iid}
+        ops.append(_msg(seq, client, contents))
+    return MergeTreeDocInput(doc_id=f"iv{idx}", ops=ops,
+                             final_seq=n_ops, final_msn=0)
+
+
+def synth_interval_doc(idx: int, n_ops: int,
+                       n_msgs=None) -> MergeTreeDocInput:
+    """A string document with a DENSE interval population over segments
+    that later removes force through the slide cascade: phase 1 builds
+    text, phase 2 attaches ~n/4 intervals across it, phase 3 removes
+    spans (every ref on a removed segment must slide — repeatedly, when
+    the landing segment is itself removed later), phase 4 keeps
+    churning adds/changes/deletes.  The stabbing workload for
+    ``ops/interval_replay.py``.  ``n_msgs`` cuts the stream to its first
+    messages under one cache token, so a longer window extends a shorter
+    one under the cache tiers' identity contract."""
+    rng = random.Random(idx * 7103 + 3)
+    ops, length = [], 0
+    live: list = []
+    for i in range(n_ops):
+        seq = i + 1
+        client = f"client{i % 3}"
+        phase = i * 4 // n_ops
+        r = rng.random()
+        if phase == 0 or length < 16:
+            pos = rng.randint(0, length)
+            text = "".join(
+                rng.choice(ALPHABET) for _ in range(rng.randint(2, 8)))
+            contents = {"kind": "insert", "pos": pos, "text": text}
+            length += len(text)
+        elif phase == 1 or (phase == 3 and (r < 0.4 or not live)):
+            iid = f"iv{idx}-{seq}"
+            start = rng.randint(0, length - 2)
+            contents = {"kind": "intervalAdd", "label": "default",
+                        "id": iid, "start": start,
+                        "end": min(length - 1, start + rng.randint(1, 12)),
+                        "props": {"c": rng.randint(0, 5)}}
+            live.append(iid)
+        elif phase == 2 and r < 0.7:
+            start = rng.randint(0, length - 2)
+            end = min(length, start + rng.randint(2, 10))
+            contents = {"kind": "remove", "start": start, "end": end}
+            length -= end - start
+        elif r < 0.7:
+            iid = rng.choice(live)
+            start = rng.randint(0, max(0, length - 2))
+            contents = {"kind": "intervalChange", "label": "default",
+                        "id": iid, "start": start,
+                        "end": min(length - 1,
+                                   start + rng.randint(1, 12))}
+        else:
+            iid = live.pop(rng.randrange(len(live)))
+            contents = {"kind": "intervalDelete", "label": "default",
+                        "id": iid}
+        ops.append(_msg(seq, client, contents))
+    window = ops[:n_msgs] if n_msgs is not None else ops
+    return MergeTreeDocInput(
+        doc_id=f"ivdoc{idx}", ops=window, final_seq=window[-1].seq,
+        final_msn=0,
+        cache_token=("bench-epoch", f"ivdoc{idx}", 0, ""),
+    )
 
 
 def gen_matrix_doc(idx: int, n_ops: int) -> MatrixDocInput:

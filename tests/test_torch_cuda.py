@@ -1429,3 +1429,76 @@ def test_wire_soak_on_card_equals_cpu(cuda):
     assert counts["tree_fold_digest_smem"] + counts["tree_fold_smem"] >= 1
     assert counts["map_lww"] >= 1
     assert counts["matrix_fold_smem"] + counts["matrix_fold_gmem"] >= 1
+
+
+def test_interval_stabbing_exact_pass_on_card_moves_only_the_digest(cuda):
+    """The interval stabbing workload (``synth_interval_doc``) through the
+    three cache tiers on the card: the cold pass equal to the
+    ``device="cpu"`` fold and the oracle; the exact pass serves every
+    document from tier 0 (no byte up, the [D, 2] digest plane down, one
+    K1 launch a chunk) with the cold pass's summaries."""
+    from fluidframework_tpu_torch.ops.device_cache import DevicePackCache
+    from fluidframework_tpu_torch.ops.launches import (launch_counts,
+                                                       reset_launches)
+    from fluidframework_tpu_torch.ops.pipeline import PackCache
+    from fluidframework_tpu_torch.service.catchup_cache import (
+        DeltaExportCache)
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    docs = [cw.synth_interval_doc(i, 96, n_msgs=84) for i in range(64)]
+    tiers = dict(pack_cache=PackCache(), delta_cache=DeltaExportCache(),
+                 device_cache=DevicePackCache(device=cuda))
+
+    def run(device, **kw):
+        stage, stats = {}, {}
+        got = pipelined_mergetree_replay(docs, chunk_docs=16, stage=stage,
+                                         stats=stats, device=device, **kw)
+        return [s.digest() for s in got], stage, stats
+
+    cold, _stage, _stats = run(cuda, **tiers)
+    assert cold == run("cpu")[0]
+    assert cold == [workload.oracle_replay(d).summarize().digest()
+                    for d in docs]
+    reset_launches()
+    exact, stage, stats = run(cuda, **tiers)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert exact == cold
+    assert (stage["h2d_bytes"], stage["d2h_bytes"]) == (0, 8 * len(docs))
+    assert stats == {"delta_docs": len(docs)}
+    assert counts["fold_export_smem"] + counts["fold_export_gmem"] == 4
+
+
+def test_loadgen_storm_on_card_passes_and_equals_cpu(cuda, tmp_path):
+    """``python -m fluidframework_tpu_torch.tools.loadgen --storm --device
+    cuda`` (its ``main``): the verdict passes, K1 is launched, and the
+    storm counters equal the same run's with ``--device cpu``."""
+    import json
+
+    from fluidframework_tpu_torch.ops.launches import (launch_counts,
+                                                       reset_launches)
+    from fluidframework_tpu_torch.tools import loadgen
+
+    args = ["--storm", "--clients", "800", "--docs", "8", "--shards", "4",
+            "--seed", "3"]
+
+    def report(device):
+        out = tmp_path / f"{device}.json"
+        assert loadgen.main([*args, "--device", device,
+                             "--out", str(out)]) == 0
+        return json.loads(out.read_text())["scenarios"]["catchup-storm"]
+
+    # the kernels build at first use: build them outside the timed run
+    mt.replay_mergetree_batch([workload.synth_doc(0, 8)], device=cuda)
+    reset_launches()
+    got = report("cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = report("cpu")
+    assert got["passed"] and got["oracle_match"]
+    assert counts["fold_export_smem"] + counts["fold_export_gmem"] >= 1
+    keys = ("requests", "served", "warm", "folds", "shed", "degraded",
+            "retries", "fold_errors", "latency_p99_ticks")
+    assert {k: got["storm"][k] for k in keys} == \
+        {k: want["storm"][k] for k in keys}
+    assert got["sequenced_ops"] == want["sequenced_ops"]

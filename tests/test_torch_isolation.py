@@ -300,7 +300,7 @@ HOST_MODULES = (
     "testing.mocks", "runtime", "runtime.summarizer", "framework",
     "framework.data_object", "framework.fluid_static", "framework.presence",
     "framework.undo_redo", "tools", "tools.bench_harness", "tools.devtools",
-    "tools.replay")
+    "tools.replay", "tools.loadgen")
 
 
 def test_host_modules_and_the_swarm_with_jax_and_the_jax_package_blocked():
@@ -333,6 +333,31 @@ def test_host_modules_and_the_swarm_with_jax_and_the_jax_package_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_loadgen_lists_scenarios_with_jax_and_the_jax_package_blocked():
+    """``python -m fluidframework_tpu_torch.tools.loadgen --list`` runs
+    with JAX and the JAX package unimportable and prints every scenario."""
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'fluidframework_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "sys.argv = ['loadgen', '--list']\n"
+        "try:\n"
+        "    runpy.run_module('fluidframework_tpu_torch.tools.loadgen',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 0, exc.code\n"
+        "assert not any(m.startswith(('jax', 'fluidframework_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    from fluidframework_tpu_torch.testing.scenarios import scenario_docs
+
+    for name in scenario_docs():
+        assert name in proc.stdout
 
 
 @pytest.mark.parametrize("entry", ["run_swarm", "run_swarm_with_oracle",
