@@ -27,7 +27,12 @@ The stage schema is the reference's: busy seconds under
 ``pack/upload/dispatch/device_wait/download/extract`` plus the byte
 counters ``h2d_bytes``/``d2h_bytes``.  ``upload`` times the explicit
 host-to-device copies (the reference's upload rides inside its dispatch
-call, so its ``upload`` reads 0 without the device-resident tier).
+call, so its ``upload`` reads 0 without the device-resident tier).  The
+port adds ``HOST_CPU_KEYS``: the pool legs' thread CPU seconds beside
+their wall seconds.  While a ``torch.profiler`` session runs, the calling
+thread's legs are spans (``pipeline.<leg>``, and ``pipeline.replay``,
+``pipeline.wait_pack``, ``pipeline.wait_extract`` around the whole call
+and its waits on the pools), on the clock of the trace's device events.
 
 The catch-up cache tiers ride the same loop, as in the reference:
 
@@ -48,17 +53,18 @@ The catch-up cache tiers ride the same loop, as in the reference:
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from time import perf_counter
+from time import perf_counter, thread_time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..convert import tensors_to
-from ..utils.telemetry import CounterSet
+from ..utils.telemetry import CounterSet, span
 from .batching import partition_replay
 from .family import KernelFamily
 from .interning import Interner, next_bucket_fine
@@ -544,21 +550,45 @@ def delta_merge_changed(delta_cache, meta, dig_np, served, changed, got):
 STAGE_KEYS = ("pack", "upload", "dispatch", "device_wait", "download",
               "extract")
 
+#: the port's twins of the host legs ``pack`` / ``extract``: thread CPU
+#: seconds over the same intervals, summed over the threads that ran
+#: them; wall minus CPU is the time the leg's threads were off the CPU
+#: (waiting for the interpreter lock or for a core)
+HOST_CPU_KEYS = ("pack_cpu", "extract_cpu")
+
 
 def seed_stage(stage: Optional[dict]) -> None:
     """Pre-seed the full stage schema so every fold reports the SAME keys
     (a leg that never ran reads 0, instead of being absent)."""
     if stage is None:
         return
-    for key in STAGE_KEYS:
+    for key in STAGE_KEYS + HOST_CPU_KEYS:
         stage.setdefault(key, 0.0)
     stage.setdefault("h2d_bytes", 0)
     stage.setdefault("d2h_bytes", 0)
 
 
-def _bump(stage: Optional[dict], key: str, t0: float) -> None:
+@contextlib.contextmanager
+def _leg(stage: Optional[dict], key: str):
+    """One leg on the calling thread, inside the span ``pipeline.<key>``:
+    its wall seconds go to ``stage[key]`` and, for ``pack`` / ``extract``,
+    its thread CPU seconds to the ``_cpu`` twin."""
+    cpu = key + "_cpu" in HOST_CPU_KEYS
+    t0, c0 = perf_counter(), (thread_time() if cpu else 0.0)
+    with span("pipeline." + key):
+        yield
     if stage is not None:
-        stage[key] = stage.get(key, 0.0) + (perf_counter() - t0)
+        _add_leg(stage, key, perf_counter() - t0,
+                 thread_time() - c0 if cpu else None)
+
+
+def _add_leg(stage: Optional[dict], key: str, wall: float,
+             cpu: Optional[float] = None) -> None:
+    """Add a leg's wall seconds (and its CPU twin's, if given)."""
+    if stage is not None:
+        stage[key] = stage.get(key, 0.0) + wall
+        if cpu is not None:
+            stage[key + "_cpu"] = stage.get(key + "_cpu", 0.0) + cpu
 
 
 def _count_d2h(stage: Optional[dict], nbytes: int) -> None:
@@ -754,7 +784,8 @@ def pipelined_family_replay(
     ``stats`` accumulates ``device_docs``/``fallback_docs`` (plus
     ``delta_docs`` for documents served from the tier-0 delta cache
     without a download); ``stage`` (if given) accumulates busy seconds
-    under ``STAGE_KEYS`` and the integer byte counters
+    under ``STAGE_KEYS``, the pool legs' CPU seconds under
+    ``HOST_CPU_KEYS`` and the integer byte counters
     ``h2d_bytes``/``d2h_bytes``; ``packed_out`` (if given) collects
     ``(state, ops, meta, tag)`` per chunk in schedule order, always the
     HOST arrays as narrowed for the upload (never resident tensors, which
@@ -786,10 +817,11 @@ def pipelined_family_replay(
             fetch_depth, schedule, stats, stage, packed_out, dev,
             pack_cache, delta_cache, device_cache, pin_resident)
 
-    return partition_replay(
-        docs, family.known_fallback, family.fallback_summary, fold,
-        stats=stats,
-    )
+    with span("pipeline.replay"):
+        return partition_replay(
+            docs, family.known_fallback, family.fallback_summary, fold,
+            stats=stats,
+        )
 
 
 def pipelined_mergetree_replay(
@@ -838,59 +870,63 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
         if on_card else None
     copy_stream = torch.cuda.Stream(device=device) if on_card else None
 
+    # The pool legs time themselves on their own threads (wall and
+    # thread CPU seconds, returned last) and open no span: the calling
+    # thread adds both to ``stage`` and spans its waits on them.
     def pack_one(lo):
-        t0 = perf_counter()
+        t0, c0 = perf_counter(), thread_time()
         chunk = sched[lo:lo + chunk_docs]
         if pack_cache is not None:
             state, ops, meta = pack_cache.pack(chunk)
         else:
             state, ops, meta = family.pack(chunk)
         state, ops = family.narrow(chunk, state, ops, meta)
-        return state, ops, meta, perf_counter() - t0
+        return state, ops, meta, perf_counter() - t0, thread_time() - c0
 
     def extract_one(meta, arr):
-        t0 = perf_counter()
+        t0, c0 = perf_counter(), thread_time()
         st: dict = {}
         res = family.extract(meta, arr, st)
-        return res, st, perf_counter() - t0
+        return res, st, perf_counter() - t0, thread_time() - c0
 
     def extract_full_store(meta, arr, dig_np):
         """Full-download extraction that also (re)publishes every
         document's tier-0 entry — the cold-fill leg of the delta path."""
-        res, st, dt = extract_one(meta, arr)
-        t0 = perf_counter()
+        res, st, dt, dc = extract_one(meta, arr)
+        t0, c0 = perf_counter(), thread_time()
         delta_store_all(delta_cache, meta["docs"], dig_np, res)
-        return res, st, dt + (perf_counter() - t0)
+        return res, st, dt + (perf_counter() - t0), \
+            dc + (thread_time() - c0)
 
     def extract_served(docs, served):
         """Whole chunk served from tier 0: zero download, zero extract."""
         return [served[d] for d in range(len(docs))], \
-            {"delta_docs": len(docs)}, 0.0
+            {"delta_docs": len(docs)}, 0.0, 0.0
 
     def extract_delta(meta, arr, changed, served, dig_np):
         """Extract ONLY the changed documents from their gathered rows;
         unchanged documents serve their cached summaries byte-identically
         (the cached tree came out of this same extraction under an equal
         digest + host anchor)."""
-        t0 = perf_counter()
+        t0, c0 = perf_counter(), thread_time()
         st: dict = {}
         got = family.extract(
             delta_sub_meta(meta, changed, family.per_doc_meta), arr, st)
         res = delta_merge_changed(delta_cache, meta, dig_np, served,
                                   changed, got)
         st["delta_docs"] = st.get("delta_docs", 0) + len(served)
-        return res, st, perf_counter() - t0
+        return res, st, perf_counter() - t0, thread_time() - c0
 
     out: List = []
 
     def collect(entry) -> None:
         fut, held = entry
-        res, st, dt = fut.result()
+        with span("pipeline.wait_extract"):
+            res, st, dt, dc = fut.result()
         for slot in held:
             slots.release(slot)
         out.extend(res)
-        if stage is not None:
-            stage["extract"] = stage.get("extract", 0.0) + dt
+        _add_leg(stage, "extract", dt, dc)
         if stats is not None:
             for k, v in st.items():
                 stats[k] = stats.get(k, 0) + v
@@ -910,22 +946,20 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                 # Wait for the DEVICE first (fold + export), so "download"
                 # times the copy alone and d2h_bytes attributes what
                 # actually crossed.
-                t0 = perf_counter()
-                core.block_until_ready()
-                if dig is not None:
-                    dig.block_until_ready()
-                _bump(stage, "device_wait", t0)
+                with _leg(stage, "device_wait"):
+                    core.block_until_ready()
+                    if dig is not None:
+                        dig.block_until_ready()
                 docs = meta["docs"]
                 if dig is None:
-                    t0 = perf_counter()
-                    arr = family.fetch(core)
-                    _bump(stage, "download", t0)
+                    with _leg(stage, "download"):
+                        arr = family.fetch(core)
                     _count_d2h(stage, _nbytes(arr))
                     fut = ex_pool.submit(extract_one, meta, arr)
                 else:
-                    t0 = perf_counter()
-                    dig_np = family.fetch(dig)  # the tiny eager round trip
-                    _bump(stage, "download", t0)
+                    with _leg(stage, "download"):
+                        # the tiny eager round trip
+                        dig_np = family.fetch(dig)
                     _count_d2h(stage, dig_np.nbytes)
                     # Host cache work stays OUTSIDE the download window;
                     # one lock acquisition serves the whole chunk.
@@ -935,9 +969,8 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                     if route == "full":
                         # Cold / all-changed / fallback route — and the
                         # golden oracle the delta path is tested against.
-                        t0 = perf_counter()
-                        arr = family.fetch(core)
-                        _bump(stage, "download", t0)
+                        with _leg(stage, "download"):
+                            arr = family.fetch(core)
                         _count_d2h(stage, _nbytes(arr))
                         fut = ex_pool.submit(extract_full_store, meta, arr,
                                              dig_np)
@@ -950,10 +983,9 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                         # would move it all) on the card — the family's
                         # gather owns that choice and reports the bytes
                         # that really crossed.
-                        t0 = perf_counter()
-                        sub, fetched = family.gather_rows(
-                            core, np.asarray(changed, np.int32))
-                        _bump(stage, "download", t0)
+                        with _leg(stage, "download"):
+                            sub, fetched = family.gather_rows(
+                                core, np.asarray(changed, np.int32))
                         _count_d2h(stage, fetched)
                         delta_cache.note_bytes_saved(
                             max(0, _nbytes(core) - fetched))
@@ -968,55 +1000,54 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
             want_digest = delta_cache is not None
             while pack_futs:
                 fut = pack_futs.popleft()
-                state, ops, meta, dt = fut.result()
+                with span("pipeline.wait_pack"):
+                    state, ops, meta, dt, dc = fut.result()
                 if next_i < len(starts):
                     pack_futs.append(
                         pack_pool.submit(pack_one, starts[next_i]))
                     next_i += 1
-                if stage is not None:
-                    stage["pack"] = stage.get("pack", 0.0) + dt
+                _add_leg(stage, "pack", dt, dc)
                 # --- upload leg (tier 2.5): resident buffers on a warm
                 # window, an in-place suffix splice on a grown one, the
                 # full upload otherwise.  All device interaction stays on
                 # THIS thread; h2d_bytes counts the pack data that really
                 # crossed (the reference's rule: the per-document base
                 # counts only when the tier uploads it).
-                t0 = perf_counter()
-                base_dev = None
-                if device_cache is not None:
-                    state_d, ops_d, base_dev, up_bytes = \
-                        device_cache.acquire(state, ops, meta,
-                                             pin=pin_resident)
-                    _count_h2d(stage, up_bytes)
-                else:
-                    _count_h2d(stage, _np_nbytes(state) + _np_nbytes(ops))
-                if base_dev is None:
-                    # No tier, or a chunk the tier bypasses (token-less,
-                    # binary): the plain upload.
-                    state_d = tensors_to(state, device)
-                    ops_d = tensors_to(ops, device)
-                    base_dev = map_leaves(
-                        lambda a: torch.from_numpy(
-                            np.ascontiguousarray(a)).to(device),
-                        family.aux(meta, want_digest))
-                _bump(stage, "upload", t0)
-                t0 = perf_counter()
-                ex = family.dispatch(state_d, ops_d, meta, want_digest,
-                                     base_dev)
-                core, dig = family.split_digest(ex, want_digest)
-                cand = want_digest and delta_cache.any_candidate(
-                    meta["docs"])
-                core = DeviceExport(core, copy_stream, slots)
-                if dig is not None:
-                    dig = DeviceExport(dig, copy_stream, slots)
-                    dig.copy_to_host_async()
-                if dig is None or not cand:
-                    # No tier-0 candidate can skip the download: start the
-                    # full copy at dispatch.  With candidates present,
-                    # starting it would move the very bytes the delta
-                    # download exists to avoid.
-                    core.copy_to_host_async()
-                _bump(stage, "dispatch", t0)
+                with _leg(stage, "upload"):
+                    base_dev = None
+                    if device_cache is not None:
+                        state_d, ops_d, base_dev, up_bytes = \
+                            device_cache.acquire(state, ops, meta,
+                                                 pin=pin_resident)
+                        _count_h2d(stage, up_bytes)
+                    else:
+                        _count_h2d(stage,
+                                   _np_nbytes(state) + _np_nbytes(ops))
+                    if base_dev is None:
+                        # No tier, or a chunk the tier bypasses
+                        # (token-less, binary): the plain upload.
+                        state_d = tensors_to(state, device)
+                        ops_d = tensors_to(ops, device)
+                        base_dev = map_leaves(
+                            lambda a: torch.from_numpy(
+                                np.ascontiguousarray(a)).to(device),
+                            family.aux(meta, want_digest))
+                with _leg(stage, "dispatch"):
+                    ex = family.dispatch(state_d, ops_d, meta, want_digest,
+                                         base_dev)
+                    core, dig = family.split_digest(ex, want_digest)
+                    cand = want_digest and delta_cache.any_candidate(
+                        meta["docs"])
+                    core = DeviceExport(core, copy_stream, slots)
+                    if dig is not None:
+                        dig = DeviceExport(dig, copy_stream, slots)
+                        dig.copy_to_host_async()
+                    if dig is None or not cand:
+                        # No tier-0 candidate can skip the download: start
+                        # the full copy at dispatch.  With candidates
+                        # present, starting it would move the very bytes
+                        # the delta download exists to avoid.
+                        core.copy_to_host_async()
                 if packed_out is not None:
                     packed_out.append((state, ops, meta,
                                        family.chunk_tag(meta)))

@@ -257,25 +257,26 @@ def replay_family_sharded(
     rows cross d2h), ``device_cache`` (tier 2.5, placed on the mesh:
     exact hits upload nothing, suffix hits splice each part in place) —
     with ``stage`` accumulating the ``pack``/``upload``/``dispatch``/
-    ``device_wait``/``download``/``extract`` busy split plus
-    ``h2d_bytes``/``d2h_bytes``.  Every family decision rides the
-    ``KernelFamily`` hooks (``dispatch_sharded``, ``make_pad``,
-    ``pad_token`` for the mesh).  ``stats`` accumulates ``device_docs`` /
-    ``fallback_docs`` (+ the per-reason split) as the batch entry points
-    do, plus ``delta_docs`` for tier-0 serves.  The whole batch is one
+    ``device_wait``/``download``/``extract`` busy split, the
+    ``pack_cpu``/``extract_cpu`` twins, plus ``h2d_bytes``/``d2h_bytes``
+    (each leg a ``pipeline.<leg>`` span while a profiler runs).  Every
+    family decision rides the ``KernelFamily`` hooks
+    (``dispatch_sharded``, ``make_pad``, ``pad_token`` for the mesh).
+    ``stats`` accumulates ``device_docs`` / ``fallback_docs`` (+ the
+    per-reason split) as the batch entry points do, plus ``delta_docs``
+    for tier-0 serves.  The whole batch is one
     chunk, padded to a multiple of ``mesh.size``, as in the reference."""
     from ..ops.batching import partition_replay
     from ..ops.pipeline import (
-        _bump,
         _count_d2h,
         _count_h2d,
+        _leg,
         _nbytes,
         _np_nbytes,
         delta_merge_changed,
         delta_route,
         delta_store_all,
         delta_sub_meta,
-        perf_counter,
         seed_stage,
     )
 
@@ -302,49 +303,46 @@ def replay_family_sharded(
                 and all(d.cache_token is not None for d in batch):
             for k in range(pad_base, len(padded)):
                 padded[k].cache_token = family.pad_token(k)
-        t0 = perf_counter()
-        if pack_cache is not None:
-            state, ops, meta = pack_cache.pack(padded)
-        else:
-            state, ops, meta = family.pack(padded)
-        state_n, ops_n = family.narrow(padded, state, ops, meta)
-        _bump(stage, "pack", t0)
+        with _leg(stage, "pack"):
+            if pack_cache is not None:
+                state, ops, meta = pack_cache.pack(padded)
+            else:
+                state, ops, meta = family.pack(padded)
+            state_n, ops_n = family.narrow(padded, state, ops, meta)
         want_digest = delta_cache is not None
 
         # --- upload leg: the resident tier or a split upload a part;
         # h2d_bytes counts what really crossed either way.
-        t0 = perf_counter()
-        aux_dev = None
-        if device_cache is not None:
-            state_u, ops_u, aux_dev, up_bytes = device_cache.acquire(
-                state_n, ops_n, meta)
-            if not isinstance(ops_u, Parts):
-                # Bypass route (token-less chunk): split like the plain
-                # path so the parts still fold on their devices.
-                ops_u = _shard_put(mesh, ops_u)
-                state_u = _shard_put(mesh, state_u)
-        else:
-            up_bytes = _np_nbytes(state_n) + _np_nbytes(ops_n)
-            ops_u = _shard_put(mesh, ops_n)
-            state_u = _shard_put(mesh, state_n)
-        if aux_dev is None:
-            aux_host = family.aux(meta, want_digest)
-            up_bytes += _np_nbytes(tuple(_leaf_list(aux_host)))
-            aux_dev = _shard_put(mesh, aux_host)
-        _bump(stage, "upload", t0)
+        with _leg(stage, "upload"):
+            aux_dev = None
+            if device_cache is not None:
+                state_u, ops_u, aux_dev, up_bytes = device_cache.acquire(
+                    state_n, ops_n, meta)
+                if not isinstance(ops_u, Parts):
+                    # Bypass route (token-less chunk): split like the
+                    # plain path so the parts still fold on their devices.
+                    ops_u = _shard_put(mesh, ops_u)
+                    state_u = _shard_put(mesh, state_u)
+            else:
+                up_bytes = _np_nbytes(state_n) + _np_nbytes(ops_n)
+                ops_u = _shard_put(mesh, ops_n)
+                state_u = _shard_put(mesh, state_n)
+            if aux_dev is None:
+                aux_host = family.aux(meta, want_digest)
+                up_bytes += _np_nbytes(tuple(_leaf_list(aux_host)))
+                aux_dev = _shard_put(mesh, aux_host)
         _count_h2d(stage, up_bytes)
 
         # --- dispatch a part + honest device wait.
-        t0 = perf_counter()
-        export = family.dispatch_sharded(mesh, state_u, ops_u, meta,
-                                         want_digest, aux_dev)
-        split = [family.split_digest(part, want_digest) for part in export]
-        core = Parts(c for c, _d in split)
-        dig = Parts(d for _c, d in split) if want_digest else None
-        _bump(stage, "dispatch", t0)
-        t0 = perf_counter()
-        _wait(mesh)
-        _bump(stage, "device_wait", t0)
+        with _leg(stage, "dispatch"):
+            export = family.dispatch_sharded(mesh, state_u, ops_u, meta,
+                                             want_digest, aux_dev)
+            split = [family.split_digest(part, want_digest)
+                     for part in export]
+            core = Parts(c for c, _d in split)
+            dig = Parts(d for _c, d in split) if want_digest else None
+        with _leg(stage, "device_wait"):
+            _wait(mesh)
 
         # Pad trimming: served/changed/extraction all operate on the
         # REAL prefix (pads sit at the tail), so stats and the tier-0
@@ -364,29 +362,26 @@ def replay_family_sharded(
                 if isinstance(ex_np, tuple) else ex_np[:n_real]
 
         def extract(meta_x, arr, extra=()):
-            t1 = perf_counter()
             st: dict = {}
-            res = family.extract(meta_x, arr, st)
-            for fn in extra:
-                fn(res)
-            _bump(stage, "extract", t1)
+            with _leg(stage, "extract"):
+                res = family.extract(meta_x, arr, st)
+                for fn in extra:
+                    fn(res)
             _bump_stats(st)
             return res
 
         def fetch_full():
             # d2h_bytes counts the PADDED buffer — that is what crosses
             # the link; pads trim host-side after the transfer.
-            t1 = perf_counter()
-            raw = _fetch_parts(family, core)
-            _bump(stage, "download", t1)
+            with _leg(stage, "download"):
+                raw = _fetch_parts(family, core)
             _count_d2h(stage, _nbytes(raw))
             return trim(raw)
 
         if dig is None:
             return extract(meta_real, fetch_full())
-        t0 = perf_counter()
-        dig_full = _fetch_parts(family, dig)  # the full padded plane
-        _bump(stage, "download", t0)
+        with _leg(stage, "download"):
+            dig_full = _fetch_parts(family, dig)  # the full padded plane
         _count_d2h(stage, dig_full.nbytes)
         dig_np = dig_full[:n_real]
         # The shared tier-0 decision + entry publication (one derivation
@@ -404,22 +399,20 @@ def replay_family_sharded(
                 sum(leaf.nbytes for leaf in _leaf_list(core)))
             _bump_stats({"delta_docs": len(real_docs)})
             return [served[d] for d in range(len(real_docs))]
-        t0 = perf_counter()
-        sub, fetched = _gather_parts(family, core,
-                                     np.asarray(changed, np.int32))
-        _bump(stage, "download", t0)
+        with _leg(stage, "download"):
+            sub, fetched = _gather_parts(family, core,
+                                         np.asarray(changed, np.int32))
         _count_d2h(stage, fetched)
         delta_cache.note_bytes_saved(max(
             0, sum(leaf.nbytes for leaf in _leaf_list(core)) - fetched))
-        t0 = perf_counter()
         st: dict = {}
-        got = family.extract(
-            delta_sub_meta(meta_real, changed, family.per_doc_meta),
-            sub, st)
-        res = delta_merge_changed(delta_cache, meta_real, dig_np, served,
-                                  changed, got)
+        with _leg(stage, "extract"):
+            got = family.extract(
+                delta_sub_meta(meta_real, changed, family.per_doc_meta),
+                sub, st)
+            res = delta_merge_changed(delta_cache, meta_real, dig_np,
+                                      served, changed, got)
         st["delta_docs"] = st.get("delta_docs", 0) + len(served)
-        _bump(stage, "extract", t0)
         _bump_stats(st)
         return res
 

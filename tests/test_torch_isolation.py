@@ -15,8 +15,7 @@ PORT = ROOT / "fluidframework_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py")
                     if PORT / "build" not in p.parents) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_fold_variants.py",
-       ROOT / "tools" / "torch_kernel_turns.py",
-       ROOT / "tools" / "torch_pipeline_turns.py"]
+       ROOT / "tools" / "torch_kernel_turns.py"]
 FORBIDDEN = ("jax", "jaxlib", "fluidframework_tpu")
 
 

@@ -119,7 +119,7 @@ def test_pipelined_matches_jax_pipeline_and_oracle(corpus, _xla_fold):
     oracle = [ref_mt.oracle_fallback_summary(d).digest() for d in ref_docs]
     assert [s.digest() for s in got] == oracle
     assert p_stats == r_stats
-    assert set(p_stage) == set(r_stage)
+    assert set(p_stage) == set(r_stage) | set(pipeline.HOST_CPU_KEYS)
     for key in ("h2d_bytes", "d2h_bytes"):
         assert p_stage[key] == r_stage[key] > 0, key
 
@@ -129,7 +129,7 @@ def test_stage_schema_matches_reference():
     port, ref = {}, {}
     pipeline.seed_stage(port)
     ref_pipeline.seed_stage(ref)
-    assert port == ref
+    assert port == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0)}
 
 
 def test_all_fallback_batch_still_reports_every_stage():
@@ -144,8 +144,9 @@ def test_all_fallback_batch_still_reports_every_stage():
         family, [workload.overflow_doc()], stage=stage, stats=stats,
         device="cpu")
     assert stats == {"fallback_docs": 1}
-    assert set(stage) == set(pipeline.STAGE_KEYS) | {"h2d_bytes",
-                                                     "d2h_bytes"}
+    ref = {}
+    ref_pipeline.seed_stage(ref)
+    assert stage == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0)}
     assert stage["h2d_bytes"] == stage["d2h_bytes"] == 0
     assert summary.digest() == \
         workload.oracle_replay(workload.overflow_doc()).summarize().digest()

@@ -189,6 +189,19 @@ def port_docs(ref_docs):
     return [port_twin(d, doc_input_from) for d in ref_docs]
 
 
+def port_stage_keys(ref_stage) -> set:
+    """The keys the port's stage dict holds where the reference's holds
+    ``ref_stage``'s: the same keys, plus the port's CPU twins of the pack
+    and extract legs wherever the stage schema was seeded."""
+    from fluidframework_tpu_torch.ops.pipeline import (HOST_CPU_KEYS,
+                                                       STAGE_KEYS)
+
+    keys = set(ref_stage)
+    if set(STAGE_KEYS) <= keys:
+        keys |= set(HOST_CPU_KEYS)
+    return keys
+
+
 def assert_states_equal(ref, got, n_docs):
     """Slots [0, n) of every plane, plus ``n`` and ``overflow``, exactly
     (the comparator of tests/test_pallas_fold.py)."""

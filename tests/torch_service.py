@@ -18,6 +18,7 @@ from fluidframework_tpu.service.catchup import CatchupService as RefCatchup
 from fluidframework_tpu_torch.convert import load_service_corpus
 from fluidframework_tpu_torch.service import LocalOrderingService
 from fluidframework_tpu_torch.service.catchup import CatchupService
+from tests.torch_corpora import port_stage_keys
 
 TIERS = ("cache", "_pack_cache", "delta_cache", "device_cache",
          "tree_pack_cache", "tree_device_cache")
@@ -118,7 +119,8 @@ class ServicePair:
         for name in COUNTERS:
             assert getattr(self.port, name) == getattr(self.ref, name), name
         assert self.port.pipeline_stats == self.ref.pipeline_stats
-        assert set(self.port.pipeline_stage) == set(self.ref.pipeline_stage)
+        assert set(self.port.pipeline_stage) == \
+            port_stage_keys(self.ref.pipeline_stage)
         for key in ("h2d_bytes", "d2h_bytes"):
             assert self.port.pipeline_stage.get(key) == \
                 self.ref.pipeline_stage.get(key), key

@@ -36,7 +36,7 @@ from fluidframework_tpu_torch.ops.tree_pipeline import (
     pipelined_tree_replay,
 )
 from fluidframework_tpu_torch.service.catchup_cache import DeltaExportCache
-from tests.torch_corpora import port_docs
+from tests.torch_corpora import port_docs, port_stage_keys
 
 TIERS = ("pack_cache", "delta_cache", "device_cache")
 
@@ -114,7 +114,7 @@ class TierPair:
         digests = [s.digest() for s in got]
         assert digests == [s.digest() for s in ref]
         assert p_stats == r_stats
-        assert set(p_stage) == set(r_stage)
+        assert set(p_stage) == port_stage_keys(r_stage)
         for key in ("h2d_bytes", "d2h_bytes"):
             assert p_stage[key] == r_stage[key], key
         assert self.tier_stats("port") == self.tier_stats("ref")
