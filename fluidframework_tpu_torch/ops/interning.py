@@ -9,6 +9,7 @@ reproducible.
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List
 
 from ..protocol.summary import canonical_json
@@ -78,6 +79,7 @@ class TextArena:
     def __init__(self) -> None:
         self._chunks: List[str] = []
         self._length = 0
+        self._finalize_lock = threading.Lock()
 
     def append(self, text: str) -> int:
         """Returns the start offset of the appended text (in characters)."""
@@ -94,14 +96,18 @@ class TextArena:
         # appended mid-join lands at index >= n and survives the slice
         # assignment (each list op is atomic under the GIL), where the
         # old wholesale `self._chunks = [joined]` would silently drop it.
-        n = len(self._chunks)
-        if n == 0:
-            return ""
-        if n > 1:
-            joined = "".join(self._chunks[:n])
-            self._chunks[:n] = [joined]
-            return joined
-        return self._chunks[0]
+        # Finalizers take turns: a chunk's extract slices finalize its
+        # arena at once, and a second splice over a snapshot taken before
+        # the first would drop what was appended in between.
+        with self._finalize_lock:
+            n = len(self._chunks)
+            if n == 0:
+                return ""
+            if n > 1:
+                joined = "".join(self._chunks[:n])
+                self._chunks[:n] = [joined]
+                return joined
+            return self._chunks[0]
 
     def slice(self, start: int, length: int) -> str:
         return self.finalize()[start : start + length]

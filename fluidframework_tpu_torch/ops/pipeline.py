@@ -10,10 +10,12 @@ Shape (as the reference's):
 - chunks are fact-scheduled (annotate-free documents grouped first);
   results return in the CALLER's order regardless;
 - packing (C++, GIL released) and the upload narrowing run in a thread
-  pool, extraction (widen + C++ bodies) in another; ALL device
-  interaction — upload, dispatch, starting the d2h copy, the waits —
-  stays on the calling thread (the reference's single-device-thread
-  contract);
+  pool, extraction (widen + C++ bodies) in another, a chunk cut into
+  document slices that run as tasks of their own (once every chunk of
+  the call is packed, the pack pool's idle workers take slices too); ALL
+  device interaction — upload, dispatch, starting the d2h copy, the
+  waits — stays on the calling thread (the reference's
+  single-device-thread contract);
 - the blocking fetch trails the dispatch front by ``fetch_depth`` chunks,
   so upload, fold and download of neighbouring chunks overlap: each
   dispatch records an event on the compute stream, and the chunk's d2h
@@ -29,10 +31,12 @@ counters ``h2d_bytes``/``d2h_bytes``.  ``upload`` times the explicit
 host-to-device copies (the reference's upload rides inside its dispatch
 call, so its ``upload`` reads 0 without the device-resident tier).  The
 port adds ``HOST_CPU_KEYS``: the pool legs' thread CPU seconds beside
-their wall seconds.  While a ``torch.profiler`` session runs, the calling
-thread's legs are spans (``pipeline.<leg>``, and ``pipeline.replay``,
-``pipeline.wait_pack``, ``pipeline.wait_extract`` around the whole call
-and its waits on the pools), on the clock of the trace's device events.
+their wall seconds, and the counter ``extract_tasks``: the extract tasks
+submitted (a chunk's slices).  While a ``torch.profiler`` session runs,
+the calling thread's legs are spans (``pipeline.<leg>``, and
+``pipeline.replay``, ``pipeline.wait_pack``, ``pipeline.wait_extract``
+around the whole call and its waits on the pools), on the clock of the
+trace's device events.
 
 The catch-up cache tiers ride the same loop, as in the reference:
 
@@ -566,6 +570,7 @@ def seed_stage(stage: Optional[dict]) -> None:
         stage.setdefault(key, 0.0)
     stage.setdefault("h2d_bytes", 0)
     stage.setdefault("d2h_bytes", 0)
+    stage.setdefault("extract_tasks", 0)
 
 
 @contextlib.contextmanager
@@ -854,6 +859,12 @@ def pipelined_mergetree_replay(
     )
 
 
+#: the fewest documents an extract slice takes: a chunk of fewer than
+#: twice this (the service's and the server's handful of documents) stays
+#: one task
+MIN_SLICE_DOCS = 64
+
+
 def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                     extract_threads, fetch_depth, schedule, stats, stage,
                     packed_out, device, pack_cache=None, delta_cache=None,
@@ -883,20 +894,20 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
         state, ops = family.narrow(chunk, state, ops, meta)
         return state, ops, meta, perf_counter() - t0, thread_time() - c0
 
-    def extract_one(meta, arr):
+    def extract_rows(meta, arr, lo, hi, dig_np):
+        """Extract documents ``[lo, hi)`` of a chunk from its full
+        download (through the same sub-meta view as the delta route);
+        with ``dig_np`` also (re)publish their tier-0 entries — the
+        cold-fill leg of the delta path."""
         t0, c0 = perf_counter(), thread_time()
+        if hi - lo < len(meta["docs"]):
+            meta = delta_sub_meta(meta, range(lo, hi), family.per_doc_meta)
+            arr = map_leaves(lambda a: a[lo:hi], arr)
         st: dict = {}
         res = family.extract(meta, arr, st)
+        if dig_np is not None:
+            delta_store_all(delta_cache, meta["docs"], dig_np[lo:hi], res)
         return res, st, perf_counter() - t0, thread_time() - c0
-
-    def extract_full_store(meta, arr, dig_np):
-        """Full-download extraction that also (re)publishes every
-        document's tier-0 entry — the cold-fill leg of the delta path."""
-        res, st, dt, dc = extract_one(meta, arr)
-        t0, c0 = perf_counter(), thread_time()
-        delta_store_all(delta_cache, meta["docs"], dig_np, res)
-        return res, st, dt + (perf_counter() - t0), \
-            dc + (thread_time() - c0)
 
     def extract_served(docs, served):
         """Whole chunk served from tier 0: zero download, zero extract."""
@@ -920,16 +931,19 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
     out: List = []
 
     def collect(entry) -> None:
-        fut, held = entry
+        futs, held = entry
         with span("pipeline.wait_extract"):
-            res, st, dt, dc = fut.result()
+            parts = [fut.result() for fut in futs]
+        # The slices are views into the pinned slots: free them only
+        # once the chunk's last slice has returned.
         for slot in held:
             slots.release(slot)
-        out.extend(res)
-        _add_leg(stage, "extract", dt, dc)
-        if stats is not None:
-            for k, v in st.items():
-                stats[k] = stats.get(k, 0) + v
+        for res, st, dt, dc in parts:
+            out.extend(res)
+            _add_leg(stage, "extract", dt, dc)
+            if stats is not None:
+                for k, v in st.items():
+                    stats[k] = stats.get(k, 0) + v
 
     pack_futs: collections.deque = collections.deque()
     ex_futs: collections.deque = collections.deque()
@@ -941,6 +955,23 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
             while next_i < len(starts) and len(pack_futs) < pack_threads + 1:
                 pack_futs.append(pack_pool.submit(pack_one, starts[next_i]))
                 next_i += 1
+
+            def submit_slices(meta, arr, dig_np=None) -> list:
+                # While chunks remain to be packed, the extract pool alone
+                # takes slices, so packs never queue behind them; once
+                # every chunk is packed, the pack pool's workers are idle
+                # for the rest of the call and take their share.
+                packing = next_i < len(starts) or bool(pack_futs)
+                n_docs = len(meta["docs"])
+                k = max(1, min(extract_threads if packing
+                               else pack_threads + extract_threads,
+                               n_docs // MIN_SLICE_DOCS))
+                cuts = [n_docs * j // k for j in range(k + 1)]
+                return [
+                    (ex_pool if j < extract_threads else pack_pool).submit(
+                        extract_rows, meta, arr, cuts[j], cuts[j + 1],
+                        dig_np)
+                    for j in range(k)]
 
             def fetch_one(meta, core, dig, cand) -> None:
                 # Wait for the DEVICE first (fold + export), so "download"
@@ -955,7 +986,7 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                     with _leg(stage, "download"):
                         arr = family.fetch(core)
                     _count_d2h(stage, _nbytes(arr))
-                    fut = ex_pool.submit(extract_one, meta, arr)
+                    futs = submit_slices(meta, arr)
                 else:
                     with _leg(stage, "download"):
                         # the tiny eager round trip
@@ -972,11 +1003,10 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                         with _leg(stage, "download"):
                             arr = family.fetch(core)
                         _count_d2h(stage, _nbytes(arr))
-                        fut = ex_pool.submit(extract_full_store, meta, arr,
-                                             dig_np)
+                        futs = submit_slices(meta, arr, dig_np)
                     elif route == "served":
                         delta_cache.note_bytes_saved(_nbytes(core))
-                        fut = ex_pool.submit(extract_served, docs, served)
+                        futs = [ex_pool.submit(extract_served, docs, served)]
                     else:
                         # Exact rows on host-readable buffers; a bucketed
                         # device gather (or the whole buffer when padding
@@ -989,11 +1019,13 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                         _count_d2h(stage, fetched)
                         delta_cache.note_bytes_saved(
                             max(0, _nbytes(core) - fetched))
-                        fut = ex_pool.submit(extract_delta, meta, sub,
-                                             changed, served, dig_np)
+                        futs = [ex_pool.submit(extract_delta, meta, sub,
+                                               changed, served, dig_np)]
+                if stage is not None:
+                    stage["extract_tasks"] += len(futs)
                 held = [h.slot for h in (core, dig)
                         if h is not None and h.slot is not None]
-                ex_futs.append((fut, held))
+                ex_futs.append((futs, held))
                 if len(ex_futs) >= extract_threads + 1:
                     collect(ex_futs.popleft())
 
@@ -1061,8 +1093,9 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
         finally:
             for f in pack_futs:
                 f.cancel()
-            for f, _held in ex_futs:
-                f.cancel()
+            for futs, _held in ex_futs:
+                for f in futs:
+                    f.cancel()
     if slots is not None:
         slots.close()
     # Restore the caller's order.

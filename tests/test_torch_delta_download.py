@@ -14,8 +14,12 @@ from fluidframework_tpu.ops import mergetree_kernel as ref_mt
 from fluidframework_tpu.service.catchup_cache import (
     tree_nbytes as ref_tree_nbytes)
 from fluidframework_tpu_torch.ops import mergetree_kernel as mt
+from fluidframework_tpu_torch.ops import pipeline
 from fluidframework_tpu_torch.ops.interning import next_bucket_fine
-from fluidframework_tpu_torch.service.catchup_cache import tree_nbytes
+from fluidframework_tpu_torch.ops.pipeline import pipelined_mergetree_replay
+from fluidframework_tpu_torch.service.catchup_cache import (
+    DeltaExportCache, tree_nbytes)
+from tests.torch_corpora import port_docs
 from tests.torch_tiers import TierPair, corpus, streams
 
 
@@ -175,3 +179,38 @@ def test_gather_export_rows_byte_rule_matches_reference(monkeypatch, where,
         bucket = next_bucket_fine(len(idx), floor=8)
         lead = 24 if bucket >= 24 else bucket
         assert fetched and all(shape[0] == lead for shape in fetched[0])
+
+
+@pytest.mark.parametrize("n_docs, k", [(192, 3), (448, 7)])
+def test_full_route_publishes_per_slice_the_unsliced_entries(monkeypatch,
+                                                             n_docs, k):
+    """Tier 0's cold fill with a chunk extracted as ``k`` document
+    slices: each slice publishes its own documents, and the entries (and
+    the tier's counters) equal the unsliced extraction's; the exact rerun
+    serves every document from them."""
+    docs = port_docs(corpus(streams(n_docs, 16), lo=12))
+
+    def run():
+        cache, stage, warm = DeltaExportCache(), {}, {}
+        cold = pipelined_mergetree_replay(docs, chunk_docs=n_docs,
+                                          delta_cache=cache, stage=stage,
+                                          device="cpu")
+        entries = {token: (e.anchor, e.digest, e.tree.digest(), e.nbytes)
+                   for token, e in cache._entries.items()}
+        served = pipelined_mergetree_replay(docs, chunk_docs=n_docs,
+                                            delta_cache=cache, stats=warm,
+                                            device="cpu")
+        assert warm["delta_docs"] == n_docs
+        assert [s.digest() for s in served] == [s.digest() for s in cold]
+        return ([s.digest() for s in cold], stage["extract_tasks"],
+                entries, cache.stats())
+
+    sliced, tasks, entries, stats = run()
+    monkeypatch.setattr(pipeline, "MIN_SLICE_DOCS", n_docs + 1)
+    whole, whole_tasks, whole_entries, whole_stats = run()
+    assert (tasks, whole_tasks) == (k, 1)
+    assert sliced == whole == [
+        s.digest() for s in mt.replay_mergetree_batch(docs, device="cpu")]
+    assert len(entries) == n_docs
+    assert entries == whole_entries
+    assert stats == whole_stats

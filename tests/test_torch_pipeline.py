@@ -10,8 +10,9 @@ from fluidframework_tpu.ops import pipeline as ref_pipeline
 from fluidframework_tpu_torch.ops import mergetree_kernel as mt
 from fluidframework_tpu_torch.ops import pipeline
 from fluidframework_tpu_torch.testing import workload
-from tests.torch_corpora import (bench_docs, hard_docs, interval_docs,
-                                 overflow_doc, port_docs, reference_doc,
+from tests.torch_corpora import (bench_docs, fuzz_doc, hard_docs,
+                                 interval_docs, overflow_doc, port_docs,
+                                 port_stage_keys, reference_doc, twinned,
                                  warm_doc)
 
 PIPELINE_CORPORA = {
@@ -119,7 +120,7 @@ def test_pipelined_matches_jax_pipeline_and_oracle(corpus, _xla_fold):
     oracle = [ref_mt.oracle_fallback_summary(d).digest() for d in ref_docs]
     assert [s.digest() for s in got] == oracle
     assert p_stats == r_stats
-    assert set(p_stage) == set(r_stage) | set(pipeline.HOST_CPU_KEYS)
+    assert set(p_stage) == port_stage_keys(r_stage)
     for key in ("h2d_bytes", "d2h_bytes"):
         assert p_stage[key] == r_stage[key] > 0, key
 
@@ -129,7 +130,8 @@ def test_stage_schema_matches_reference():
     port, ref = {}, {}
     pipeline.seed_stage(port)
     ref_pipeline.seed_stage(ref)
-    assert port == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0)}
+    assert port == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0),
+                    "extract_tasks": 0}
 
 
 def test_all_fallback_batch_still_reports_every_stage():
@@ -146,7 +148,8 @@ def test_all_fallback_batch_still_reports_every_stage():
     assert stats == {"fallback_docs": 1}
     ref = {}
     ref_pipeline.seed_stage(ref)
-    assert stage == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0)}
+    assert stage == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0),
+                     "extract_tasks": 0}
     assert stage["h2d_bytes"] == stage["d2h_bytes"] == 0
     assert summary.digest() == \
         workload.oracle_replay(workload.overflow_doc()).summarize().digest()
@@ -198,3 +201,141 @@ def test_pinned_host_slots_refuse_reuse_while_busy():
     slots._busy = [True, False]
     with pytest.raises(RuntimeError, match="still in use"):
         slots.take([])
+
+
+def _short_fuzz_doc(**spec):
+    """One short fuzz log (4 rounds, about 30 ops), so the chunk's op-row
+    bucket stays small."""
+    [doc] = port_docs(twinned(lambda gen: [fuzz_doc(
+        gen, "fz-short", gen.fuzz.StringFuzzSpec(**spec), seed=900,
+        n_clients=3, rounds=4)]))
+    return doc
+
+
+def _sliced_corpus(n_docs, k):
+    """``n_docs`` short documents with the special ones (annotating, warm,
+    a pack-time fallback, a forced overflow, an attribution and an
+    interval document) on both sides of every boundary of ``k`` slices.
+    The long fixture logs stay out: they would widen every row."""
+    attributed = port_docs(bench_docs(1, 24))[0]
+    attributed.attribution = True
+    fallback = _short_fuzz_doc(intervals=True, obliterate=True)
+    assert mt.known_oracle_fallback(fallback)
+    special = [d for d in port_docs(hard_docs()) if len(d.ops) < 40] + [
+        fallback, workload.overflow_doc(), attributed,
+        _short_fuzz_doc(intervals=True)]
+    docs = port_docs(bench_docs(n_docs, 12))
+    cuts = [n_docs * j // k for j in range(k + 1)]
+    at = sorted({0, n_docs - 1, n_docs // 2, n_docs // 2 + 1}
+                | {c for lo in cuts[1:-1] for c in (lo - 1, lo)})
+    for i, pos in enumerate(at):
+        docs[pos] = special[i % len(special)]
+    free = (pos for pos in range(2, n_docs, 5) if pos not in at)
+    for pos, doc in zip(free, special[len(at):]):
+        docs[pos] = doc
+    return docs
+
+
+@pytest.mark.parametrize("n_docs, k", [(64, 1), (128, 2), (192, 3),
+                                       (448, 7)])
+def test_document_slices_extract_the_unsliced_bytes(monkeypatch, n_docs, k):
+    """A chunk extracted as ``k`` document slices on the pools' workers
+    gives every summary of the unsliced extraction, in the caller's order,
+    with the same ``device_docs`` / ``fallback_docs``; each Python branch
+    of ``summaries_from_export`` sits on a slice boundary.  The family
+    lets known fallbacks into the chunk, so ``needs_fallback`` is read
+    after the fold."""
+    import dataclasses
+
+    docs = _sliced_corpus(n_docs, k)
+    family = dataclasses.replace(pipeline.MERGETREE_FAMILY,
+                                 known_fallback=lambda doc: False)
+
+    def run():
+        stage, stats = {}, {}
+        got = pipeline.pipelined_family_replay(
+            family, docs, chunk_docs=n_docs, stage=stage, stats=stats,
+            device="cpu")
+        return [s.digest() for s in got], stage["extract_tasks"], stats
+
+    sliced, tasks, stats = run()
+    monkeypatch.setattr(pipeline, "MIN_SLICE_DOCS", n_docs + 1)
+    whole, whole_tasks, whole_stats = run()
+    assert (tasks, whole_tasks) == (k, 1)
+    assert sliced == whole
+    assert stats == whole_stats
+    assert stats["fallback_docs"] >= 2 and stats["device_docs"] > 0
+    assert sliced == [s.digest() for s in mt.replay_mergetree_batch(
+        docs, device="cpu")]
+
+
+@pytest.mark.parametrize("chunk_docs, fetch_depth, tasks", [
+    (112, 2, [1] * 8),   # chunks under 128 documents: one task each
+    (448, 0, [3, 7]),    # extract_threads while a pack remains, then all
+    (448, 2, [7, 7]),    # every chunk packed before the first fetch
+], ids=["small-chunks", "packs-remain", "all-packed"])
+def test_extract_tasks_follow_the_chunk_and_the_free_workers(
+        chunk_docs, fetch_depth, tasks):
+    """``stage["extract_tasks"]`` and the slices each chunk was cut into:
+    a chunk of fewer than two slices' documents is one task; while chunks
+    remain to be packed a chunk takes the extract pool's 3 workers, once
+    every chunk is packed the pack pool's 4 as well.  The summaries are
+    the one-batch entry's."""
+    import collections
+    import dataclasses
+    import threading
+
+    docs = port_docs(bench_docs(896, 8))
+    arenas, lock = collections.Counter(), threading.Lock()
+
+    def extract(meta, arr, st):
+        with lock:
+            arenas[id(meta["arena"])] += 1
+        return pipeline.MERGETREE_FAMILY.extract(meta, arr, st)
+
+    family = dataclasses.replace(pipeline.MERGETREE_FAMILY, extract=extract)
+    stage, packed = {}, []
+    got = pipeline.pipelined_family_replay(
+        family, docs, chunk_docs=chunk_docs, fetch_depth=fetch_depth,
+        stage=stage, packed_out=packed, device="cpu")
+    assert [arenas[id(meta["arena"])] for _s, _o, meta, _t in packed] == \
+        tasks
+    assert stage["extract_tasks"] == sum(tasks)
+    assert [s.digest() for s in got] == \
+        [s.digest() for s in mt.replay_mergetree_batch(docs, device="cpu")]
+
+
+def test_arena_finalizers_take_turns_and_keep_every_append():
+    """A chunk's extract slices finalize its arena at once, while a suffix
+    extension of the cached chunk may append to the same arena: under a
+    short switch interval, with more finalizing threads than cores, every
+    appended text survives."""
+    import sys
+    import threading
+
+    from fluidframework_tpu_torch.ops.interning import TextArena
+
+    texts = [f"<{i}>" for i in range(4000)]
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _trial in range(5):
+            arena, stop = TextArena(), threading.Event()
+
+            def finalize():
+                while not stop.is_set():
+                    arena.finalize()
+
+            finalizers = [threading.Thread(target=finalize)
+                          for _ in range(16)]
+            for thread in finalizers:
+                thread.start()
+            for text in texts:
+                arena.append(text)
+            stop.set()
+            for thread in finalizers:
+                thread.join(timeout=30)
+                assert not thread.is_alive()
+            assert arena.finalize() == "".join(texts)
+    finally:
+        sys.setswitchinterval(saved)

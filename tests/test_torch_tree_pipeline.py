@@ -362,3 +362,35 @@ def test_map_leaves_keeps_the_tree_shape():
     edits = tk.TreeEdits(*([arr] * 8))
     mapped = pipeline.map_leaves(double, edits)
     assert type(mapped) is tk.TreeEdits and mapped.seq.tolist() == [0, 2, 4]
+
+
+@pytest.mark.parametrize("n_docs, k", [(160, 2), (560, 7)])
+def test_document_slices_extract_the_unsliced_bytes(monkeypatch, n_docs, k):
+    """A tree chunk extracted as ``k`` document slices (``n_nodes`` /
+    ``n_cont`` / ``t_rows`` sliced beside the documents) gives the
+    unsliced extraction's summaries in the caller's order, the one-batch
+    entry's and the oracle's, with the same per-reason fallback counts.
+    Known fallbacks route around the chunk, so it holds fewer than
+    ``n_docs``."""
+    docs = [tree_doc_input_from(tree_doc(i, STREAMS[i % 16], 34))
+            for i in range(n_docs)]
+    folded = sum(not tp.TREE_FAMILY.known_fallback(d) for d in docs)
+    assert min(7, folded // pipeline.MIN_SLICE_DOCS) == k
+
+    def run():
+        stage, stats = {}, {}
+        got = tp.pipelined_tree_replay(docs, chunk_docs=n_docs, stage=stage,
+                                       stats=stats, device="cpu")
+        return [s.digest() for s in got], stage["extract_tasks"], stats
+
+    sliced, tasks, stats = run()
+    monkeypatch.setattr(pipeline, "MIN_SLICE_DOCS", n_docs + 1)
+    whole, whole_tasks, whole_stats = run()
+    assert (tasks, whole_tasks) == (k, 1)
+    assert sliced == whole
+    assert stats == whole_stats and stats["device_docs"] > 0
+    assert any(v for key, v in stats.items()
+               if key.startswith("fallback_") and key != "fallback_docs")
+    assert sliced == [s.digest() for s in tk.replay_tree_batch(
+        docs, device="cpu")]
+    assert sliced == [tk.oracle_fallback_summary(d).digest() for d in docs]
