@@ -38,7 +38,6 @@ import numpy as np
 from ..protocol.messages import MessageType, SequencedMessage
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_ROOT, "csrc", "oppack.cpp")
 #: build outputs (listed in .gitignore), shared with the CUDA kernels
 BUILD_DIR = os.path.join(_PKG_ROOT, "build")
 
@@ -137,19 +136,28 @@ _lib_tried = False
 
 
 def _build_library() -> Optional[str]:
-    if not os.path.exists(_SRC):
+    return build_native("oppack")
+
+
+def build_native(stem: str) -> Optional[str]:
+    """Compile ``csrc/<stem>.cpp`` with g++ into
+    ``build/lib<stem>-<hash>.so`` unless that library exists (the hash of
+    the source names it); its path, or None without a source or a
+    toolchain."""
+    src = os.path.join(_PKG_ROOT, "csrc", f"{stem}.cpp")
+    if not os.path.exists(src):
         return None
-    with open(_SRC, "rb") as f:
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"liboppack-{digest}.so")
+    lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
     if os.path.exists(lib_path):
         return lib_path
     tmp = lib_path + f".tmp{os.getpid()}"
     try:
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-             "-o", tmp, _SRC],
+             "-o", tmp, src],
             check=True, capture_output=True, timeout=120,
         )
         # g++ wrote the artifact through its own descriptors: reopen and
@@ -172,7 +180,7 @@ def _build_library() -> Optional[str]:
     # unlink for any process still using it).
     import glob
 
-    for old in glob.glob(os.path.join(BUILD_DIR, "liboppack-*.so")):
+    for old in glob.glob(os.path.join(BUILD_DIR, f"lib{stem}-*.so")):
         if old != lib_path:
             try:
                 os.unlink(old)

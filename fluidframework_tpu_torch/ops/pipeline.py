@@ -560,6 +560,21 @@ STAGE_KEYS = ("pack", "upload", "dispatch", "device_wait", "download",
 #: (waiting for the interpreter lock or for a core)
 HOST_CPU_KEYS = ("pack_cpu", "extract_cpu")
 
+#: counts an extract task returns beside its ``stats`` that belong to the
+#: stage: ``extract_nodes``, the forest nodes a tree extraction wrote into
+#: summaries (0 for merge-tree)
+EXTRACT_STAGE_COUNTS = ("extract_nodes",)
+
+
+def merge_extract_counts(st: dict, stats: Optional[dict],
+                         stage: Optional[dict]) -> None:
+    """Add one extract task's counts: ``EXTRACT_STAGE_COUNTS`` to
+    ``stage``, the rest to ``stats``."""
+    for k, v in st.items():
+        into = stage if k in EXTRACT_STAGE_COUNTS else stats
+        if into is not None:
+            into[k] = into.get(k, 0) + v
+
 
 def seed_stage(stage: Optional[dict]) -> None:
     """Pre-seed the full stage schema so every fold reports the SAME keys
@@ -571,6 +586,8 @@ def seed_stage(stage: Optional[dict]) -> None:
     stage.setdefault("h2d_bytes", 0)
     stage.setdefault("d2h_bytes", 0)
     stage.setdefault("extract_tasks", 0)
+    for key in EXTRACT_STAGE_COUNTS:
+        stage.setdefault(key, 0)
 
 
 @contextlib.contextmanager
@@ -941,9 +958,7 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
         for res, st, dt, dc in parts:
             out.extend(res)
             _add_leg(stage, "extract", dt, dc)
-            if stats is not None:
-                for k, v in st.items():
-                    stats[k] = stats.get(k, 0) + v
+            merge_extract_counts(st, stats, stage)
 
     pack_futs: collections.deque = collections.deque()
     ex_futs: collections.deque = collections.deque()
@@ -1039,6 +1054,10 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                         pack_pool.submit(pack_one, starts[next_i]))
                     next_i += 1
                 _add_leg(stage, "pack", dt, dc)
+                if stats is not None and meta.get("native_docs"):
+                    # documents a family's native record pack packed
+                    stats["native_pack_docs"] = \
+                        stats.get("native_pack_docs", 0) + meta["native_docs"]
                 # --- upload leg (tier 2.5): resident buffers on a warm
                 # window, an in-place suffix splice on a grown one, the
                 # full upload otherwise.  All device interaction stays on

@@ -262,6 +262,23 @@ class TreeDocInput:
     #: generation the edit stream extends append-only under this anchor.
     #: None bypasses every cache tier.
     cache_token: Optional[tuple] = None
+    #: the messages as binary edit records with their doc-local tables
+    #: (``ops/tree_native.encode_tree_ops``), written once at ingestion.
+    #: When set the records are authoritative and ``ops`` may be empty: a
+    #: batch of such documents with no base summary packs in C++
+    #: (``tree_native.pack_records``), and the records decode back to the
+    #: messages wherever the messages themselves are needed.  Such
+    #: documents bypass the pack tiers, as binary string streams do.
+    records: Optional[Any] = None
+
+
+def tree_messages(doc: TreeDocInput) -> Sequence[SequencedMessage]:
+    """The document's messages: ``ops``, or its records decoded."""
+    if doc.records is None:
+        return doc.ops
+    from .tree_native import decode_tree_ops
+
+    return decode_tree_ops(doc.records)
 
 
 class _DocPack:
@@ -307,10 +324,30 @@ class _DocPack:
         return self.containers.intern((parent_idx, field_name))
 
 
+class _RecordDocPack(_DocPack):
+    """A document's bookkeeping as the native pack leaves it
+    (``tree_native.pack_records`` sets every table); ``removal_time``,
+    which only a suffix extension reads, is read from the records on
+    first use."""
+
+    def __init__(self, records) -> None:
+        self._records = records
+
+    def __getattr__(self, name):
+        if name != "removal_time":
+            raise AttributeError(name)
+        from .tree_native import removal_times
+
+        self.removal_time = removal_times(self._records)
+        return self.removal_time
+
+
 def _count_nodes_and_edits(doc: TreeDocInput) -> Tuple[int, int]:
     from ..dds.tree import content_ids
 
     nodes, edits = 1, 0  # root
+    if doc.records is not None:
+        nodes, edits = doc.records.n_nodes_est, doc.records.n_edits_est
     if doc.base_summary is not None:
         import json
 
@@ -326,6 +363,8 @@ def _count_nodes_and_edits(doc: TreeDocInput) -> Tuple[int, int]:
             count(ch)
             for chs in obj.get("fields", {}).values() for ch in chs
         )
+    if doc.records is not None:
+        return nodes, edits
     for msg in doc.ops:
         for edit in msg.contents["edits"]:
             kind = edit["kind"]
@@ -636,10 +675,21 @@ def tree_buckets(docs: Sequence[TreeDocInput]):
 
 
 def pack_tree_batch(docs: Sequence[TreeDocInput]):
-    """Pack documents into uniform-shape arrays + host metadata."""
+    """Pack documents into uniform-shape arrays + host metadata.  A batch
+    whose documents all carry records and no base summary packs natively
+    (``tree_native.pack_records``: the same planes and meta, bit for bit,
+    and ``meta["native_docs"]``); without the native library, or for any
+    other batch, the pack below runs on the documents' messages."""
+    N, T = tree_buckets(docs)
+    if docs and all(d.records is not None and d.base_summary is None
+                    for d in docs):
+        from .tree_native import pack_records
+
+        packed = pack_records(docs, N, T)
+        if packed is not None:
+            return packed
     values = Interner()
     doc_packs = [_DocPack() for _ in docs]
-    N, T = tree_buckets(docs)
     D = len(docs)
     # Containers ≤ nodes·fields; sized after a packing dry run is overkill —
     # intern first, then allocate.  Two passes keep the arrays exact.
@@ -652,7 +702,7 @@ def pack_tree_batch(docs: Sequence[TreeDocInput]):
         edit_rows: List[dict] = []
         load_tree_base(pack, values, node_rows, chains, doc)
         fill_tree_doc_messages(pack, values, node_rows, chains, edit_rows,
-                               doc.ops)
+                               tree_messages(doc))
         packed_docs.append((node_rows, chains, edit_rows))
 
     C = next_bucket(
@@ -696,7 +746,7 @@ def oracle_fallback_summary(doc: TreeDocInput) -> SummaryTree:
         replica._attributor = Attributor()
     if doc.base_summary is not None:
         replica.load(doc.base_summary)
-    for msg in doc.ops:
+    for msg in tree_messages(doc):
         replica.process(msg, local=False)
     replica.advance(doc.final_seq, doc.final_msn)
     return replica.summarize()
@@ -732,6 +782,10 @@ def _known_tree_fallback_uncached(doc: TreeDocInput):
 
         if json.loads(doc.base_summary.blob_bytes("header")).get("limbo"):
             return "base_limbo"
+    if doc.records is not None:
+        from .tree_native import route_records
+
+        return route_records(doc.records)
     for msg in doc.ops:
         for edit in msg.contents["edits"]:
             kind = edit["kind"]
@@ -743,12 +797,15 @@ def _known_tree_fallback_uncached(doc: TreeDocInput):
 
 
 def summary_from_state(meta, state_np: dict, d: int,
-                       stats: Optional[dict] = None) -> SummaryTree:
+                       stats: Optional[dict] = None,
+                       counts: Optional[dict] = None) -> SummaryTree:
     """Final device state → the oracle's canonical summary bytes.
     ``stats`` counts this doc as device/fallback WHERE the routing
     decision is made — per REASON (revive / multi-id move / MAX_DEPTH
     overflow / …) through the shared ``count_fallback`` — so the
-    counters can never drift from the actual serving path."""
+    counters can never drift from the actual serving path.  ``counts``
+    (when given) gets ``extract_nodes``: the forest nodes this extraction
+    wrote into the summary (none on the oracle's route)."""
     from .batching import count_fallback
 
     doc: TreeDocInput = meta["docs"][d]
@@ -797,7 +854,11 @@ def summary_from_state(meta, state_np: dict, d: int,
             cur = int(nxt[cur])
         return out
 
+    emitted_nodes = 0
+
     def node_obj(idx: int) -> dict:
+        nonlocal emitted_nodes
+        emitted_nodes += 1
         obj: Dict[str, Any] = {
             "id": pack.node_ids.values[idx],
             "type": pack.node_types[idx],
@@ -854,6 +915,9 @@ def summary_from_state(meta, state_np: dict, d: int,
         return oracle_fallback_summary(doc)
     if stats is not None:
         stats["device_docs"] = stats.get("device_docs", 0) + 1
+    if counts is not None:
+        counts["extract_nodes"] = counts.get("extract_nodes", 0) \
+            + emitted_nodes
     tree = SummaryTree()
     tree.add_blob("header", canonical_json(root_obj))
     if doc.attribution:

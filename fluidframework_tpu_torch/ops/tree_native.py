@@ -1,0 +1,559 @@
+"""Binary edit records for SharedTree documents, and the native tree pack.
+
+The ingestion side (the sequencer's log, a load generator) encodes each
+tree document's changeset messages ONCE into the flat record stream
+documented in ``csrc/treepack.cpp`` (``encode_tree_ops``: pure Python, run
+once per message).  Node ids, fields, types, values and clients become
+indices into the document's own tables, numbered by first appearance; node
+ids and values in the order the tree pack interns them, so a record's node
+index is the forest row it packs to.  A ``TreeDocInput`` carrying
+``records`` may leave ``ops`` empty: the stream is authoritative.
+
+``pack_records`` fills the ``TreeState`` / ``TreeEdits`` planes and the
+meta of ``tree_kernel.pack_tree_batch`` for a batch of such documents in
+C++ (``libtreepack``, built from the source by the content-hashed rule of
+``ops/native_pack.py``; the interpreter lock is released around each
+call), bit for bit what the Python pack fills from the same messages.
+Without a toolchain it returns None and the Python pack runs on the
+decoded messages.  ``decode_tree_ops`` gives back the messages the stream
+was encoded from (the oracle's route: MAX_DEPTH overflow, purged-parent
+inserts), and ``route_records`` the pre-pack routing verdict.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import struct
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..protocol.messages import MessageType, SequencedMessage
+from .interning import Interner
+
+_HEADER = struct.Struct("<6id")
+_I32 = struct.Struct("<i")
+_ITEM = struct.Struct("<6i")
+_KIND = struct.Struct("<B")
+
+R_INSERT, R_REMOVE, R_SET, R_MOVE, R_REVIVE = 1, 2, 3, 4, 5
+_KINDS = {"insert": R_INSERT, "remove": R_REMOVE, "set": R_SET,
+          "move": R_MOVE, "revive": R_REVIVE}
+_NAMES = {v: k for k, v in _KINDS.items()}
+#: an item's or a set's value: no ``value`` key, or a null value
+VALUE_ABSENT, VALUE_NULL = -1, -2
+#: an item whose spec carries no ``removedSeq``
+REMOVED_ABSENT = -2 ** 31
+#: the routing verdicts of ``treepack_route``, and the pack's fallback
+#: reasons, by code
+ROUTES = {1: "revive", 2: "multi_id_move"}
+FALLBACKS = {0: None, 1: "revive", 2: "multi_id_move",
+             3: "purged_parent_insert"}
+
+_EDIT_KEYS = {
+    "insert": {"kind", "parent", "field", "anchor", "content"},
+    "remove": {"kind", "ids"},
+    "set": {"kind", "id", "value"},
+    "move": {"kind", "ids", "parent", "field", "anchor"},
+    "revive": {"kind", "ids", "parent", "field", "anchor", "content"},
+}
+_SPEC_KEYS = {"id", "type", "value", "removedSeq", "fields"}
+
+
+@dataclasses.dataclass
+class TreeRecords:
+    """One document's changeset messages as a record stream and its
+    tables.  ``nodes[:n_packed]`` are the nodes the pack interns, in its
+    order (the root ``""`` first), ``node_types`` their types (``""`` for
+    a node no insert materializes); the rest are named only by revives and
+    multi-id moves.  ``values[:n_packed_values]`` are the values the pack
+    interns, in its order; ``value_keys`` their interning keys where some
+    value is a dict or list (None: each value is its own key).
+    ``n_nodes_est`` / ``n_edits_est`` are the sizing estimate
+    ``tree_kernel.tree_buckets`` takes of the messages."""
+
+    blob: bytes
+    clients: List[Optional[str]]
+    nodes: List[str]
+    n_packed: int
+    node_types: List[str]
+    types: List[str]
+    fields: List[str]
+    values: List[Any]
+    n_packed_values: int
+    n_nodes_est: int
+    n_edits_est: int
+    value_keys: Optional[List[Any]] = None
+
+
+def _check_spec(spec) -> None:
+    if not isinstance(spec, dict) or not set(spec) <= _SPEC_KEYS \
+            or not isinstance(spec.get("id"), str) \
+            or not isinstance(spec.get("type"), str):
+        raise ValueError(f"tree records cannot carry the node spec {spec!r}")
+    removed = spec.get("removedSeq", 0)
+    if not isinstance(removed, int) or not 0 <= removed < 2 ** 31 - 1:
+        raise ValueError(f"tree records cannot carry removedSeq {removed!r}")
+    fields = spec.get("fields", {})
+    if not isinstance(fields, dict) or not all(
+            isinstance(f, str) and isinstance(ch, list) and ch
+            for f, ch in fields.items()):
+        raise ValueError(f"tree records cannot carry the fields {fields!r}")
+
+
+def _check_edit(edit) -> str:
+    kind = edit.get("kind") if isinstance(edit, dict) else None
+    if kind not in _EDIT_KEYS or set(edit) != _EDIT_KEYS[kind]:
+        raise ValueError(f"tree records cannot carry the edit {edit!r}")
+    if kind in ("insert", "revive") and not edit["content"]:
+        raise ValueError("tree records cannot carry an empty insert")
+    return kind
+
+
+def _preorder(content: Sequence[dict]) -> List[Tuple[dict, int, Optional[str]]]:
+    """(spec, index of the item whose field holds it, that field) of every
+    node of ``content``, in pre-order (the pack's materialization order)."""
+    out: List[Tuple[dict, int, Optional[str]]] = []
+
+    def walk(spec, up, field):
+        _check_spec(spec)
+        me = len(out)
+        out.append((spec, up, field))
+        for f, children in spec.get("fields", {}).items():
+            for child in children:
+                walk(child, me, f)
+
+    for spec in content:
+        walk(spec, -1, None)
+    return out
+
+
+def encode_tree_ops(msgs: Sequence[SequencedMessage]) -> TreeRecords:
+    """A tree document's changeset messages (ascending seq) → its record
+    stream and tables.  Raises ValueError for what the records cannot
+    carry exactly (a message that is not an op of edits, an unknown edit
+    kind or key, an empty insert or field): such a document keeps its
+    messages."""
+    nodes, values = Interner(), Interner()
+    nodes.intern("")
+    node_types = [""]
+
+    def node(nid) -> int:
+        if not isinstance(nid, str):
+            raise ValueError(f"tree records cannot carry the node id {nid!r}")
+        i = nodes.intern(nid)
+        if i == len(node_types):
+            node_types.append("")
+        return i
+
+    def value_id(v) -> int:
+        i = values.intern(v)
+        if type(values.values[i]) is not type(v):
+            # 1 and True (or 1.0) share an interning key, and the table
+            # would give back the first
+            raise ValueError(f"tree records cannot carry both "
+                             f"{values.values[i]!r} and {v!r}")
+        return i
+
+    def value(spec_or_edit) -> None:
+        v = spec_or_edit.get("value")
+        if v is not None:
+            value_id(v)
+
+    deferred = []
+    # The pack's interning order: nodes and values as
+    # fill_tree_doc_messages interns them.
+    for msg in msgs:
+        if msg.type is not MessageType.OP or not isinstance(
+                msg.contents, dict) or set(msg.contents) != {"edits"}:
+            raise ValueError("tree records carry changeset ops only")
+        for edit in msg.contents["edits"]:
+            kind = _check_edit(edit)
+            if kind == "insert":
+                node(edit["parent"])
+                for spec, _up, _f in _preorder(edit["content"]):
+                    i = node(spec["id"])
+                    node_types[i] = spec["type"]
+                    value(spec)
+                if edit["anchor"] is not None:
+                    node(edit["anchor"])
+            elif kind == "remove":
+                for nid in edit["ids"]:
+                    node(nid)
+            elif kind == "set":
+                node(edit["id"])
+                value(edit)
+            elif kind == "move" and len(edit["ids"]) == 1:
+                node(edit["parent"])
+                node(edit["ids"][0])
+                if edit["anchor"] is not None:
+                    node(edit["anchor"])
+            else:
+                deferred.append(edit)
+    n_packed, n_packed_values = len(nodes), len(values)
+    for edit in deferred:
+        for nid in edit["ids"]:
+            node(nid)
+        node(edit["parent"])
+        if edit["anchor"] is not None:
+            node(edit["anchor"])
+        for spec, _up, _f in _preorder(edit.get("content", ())):
+            node(spec["id"])
+            value(spec)
+
+    clients, fields, types = Interner(), Interner(), Interner()
+    n_nodes_est, n_edits_est = 1, 0
+    out = bytearray()
+
+    def anchor_of(edit) -> int:
+        return -1 if edit["anchor"] is None else nodes.intern(edit["anchor"])
+
+    def ids_of(edit) -> bytes:
+        return _I32.pack(len(edit["ids"])) + b"".join(
+            _I32.pack(nodes.intern(nid)) for nid in edit["ids"])
+
+    def items_of(content) -> bytes:
+        nonlocal n_nodes_est
+        items = _preorder(content)
+        n_nodes_est += len(items)
+        parts = [_I32.pack(len(items))]
+        for spec, up, f in items:
+            v = VALUE_ABSENT if "value" not in spec else (
+                VALUE_NULL if spec["value"] is None
+                else value_id(spec["value"]))
+            parts.append(_ITEM.pack(
+                nodes.intern(spec["id"]), types.intern(spec["type"]), v,
+                spec.get("removedSeq", REMOVED_ABSENT), up,
+                -1 if f is None else fields.intern(f)))
+        return b"".join(parts)
+
+    for msg in msgs:
+        edits = msg.contents["edits"]
+        client = -1 if msg.client_id is None \
+            else clients.intern(msg.client_id)
+        try:
+            out += _HEADER.pack(msg.seq, msg.client_seq, msg.ref_seq,
+                                msg.min_seq, client, len(edits),
+                                float(msg.timestamp))
+        except struct.error as exc:
+            raise ValueError(f"tree records cannot carry the message "
+                             f"header of seq {msg.seq!r}") from exc
+        for edit in edits:
+            kind = edit["kind"]
+            out += _KIND.pack(_KINDS[kind])
+            if kind in ("insert", "move", "revive"):
+                out += struct.pack("<3i", nodes.intern(edit["parent"]),
+                                   fields.intern(edit["field"]),
+                                   anchor_of(edit))
+            if kind == "insert":
+                out += items_of(edit["content"])
+                n_edits_est += 1
+            elif kind in ("remove", "move"):
+                out += ids_of(edit)
+                n_edits_est += len(edit["ids"])
+            elif kind == "set":
+                v = VALUE_NULL if edit["value"] is None \
+                    else value_id(edit["value"])
+                out += struct.pack("<2i", nodes.intern(edit["id"]), v)
+                n_edits_est += 1
+            else:
+                out += ids_of(edit) + items_of(edit["content"])
+                n_edits_est += len(edit["ids"])
+    keyed = any(isinstance(v, (dict, list)) for v in values.values)
+    return TreeRecords(
+        blob=bytes(out), clients=clients.values, nodes=nodes.values,
+        n_packed=n_packed, node_types=node_types[:n_packed],
+        types=types.values, fields=fields.values, values=values.values,
+        n_packed_values=n_packed_values, n_nodes_est=n_nodes_est,
+        n_edits_est=n_edits_est,
+        value_keys=[Interner._hashable(v) for v in values.values]
+        if keyed else None)
+
+
+# -- reading the stream in Python ----------------------------------------------
+
+
+def _parse(blob: bytes):
+    """``(header, edits)`` per message; an edit is ``(kind, fields)``:
+    insert ``(parent, field, anchor, items)``, remove ``(ids,)``, set
+    ``(node, value)``, move ``(parent, field, anchor, ids)``, revive
+    ``(parent, field, anchor, ids, items)``."""
+    off = 0
+    out = []
+
+    def i32():
+        nonlocal off
+        (v,) = _I32.unpack_from(blob, off)
+        off += 4
+        return v
+
+    def ids():
+        n = i32()
+        return [i32() for _ in range(n)]
+
+    def items():
+        nonlocal off
+        n = i32()
+        got = [_ITEM.unpack_from(blob, off + 24 * j) for j in range(n)]
+        off += 24 * n
+        return got
+
+    try:
+        while off < len(blob):
+            header = _HEADER.unpack_from(blob, off)
+            off += _HEADER.size
+            edits = []
+            for _ in range(header[5]):
+                (kind,) = _KIND.unpack_from(blob, off)
+                off += 1
+                if kind == R_INSERT:
+                    edits.append((kind, (i32(), i32(), i32(), items())))
+                elif kind == R_REMOVE:
+                    edits.append((kind, (ids(),)))
+                elif kind == R_SET:
+                    edits.append((kind, (i32(), i32())))
+                elif kind == R_MOVE:
+                    edits.append((kind, (i32(), i32(), i32(), ids())))
+                elif kind == R_REVIVE:
+                    edits.append((kind, (i32(), i32(), i32(), ids(),
+                                         items())))
+                else:
+                    raise ValueError(f"unknown tree record kind {kind}")
+            out.append((header, edits))
+    except struct.error as exc:
+        raise ValueError("malformed tree record stream") from exc
+    return out
+
+
+def decode_tree_ops(rec: TreeRecords) -> List[SequencedMessage]:
+    """The messages ``rec`` was encoded from (the oracle's route)."""
+    nodes, fields, values = rec.nodes, rec.fields, rec.values
+
+    def anchor(a):
+        return None if a == -1 else nodes[a]
+
+    def content(items) -> List[dict]:
+        specs: List[dict] = []
+        top: List[dict] = []
+        for node, typ, value, removed, up, field in items:
+            spec: Dict[str, Any] = {"id": nodes[node], "type": rec.types[typ]}
+            if value != VALUE_ABSENT:
+                spec["value"] = None if value == VALUE_NULL else values[value]
+            if removed != REMOVED_ABSENT:
+                spec["removedSeq"] = removed
+            specs.append(spec)
+            if up == -1:
+                top.append(spec)
+            else:
+                specs[up].setdefault("fields", {}).setdefault(
+                    fields[field], []).append(spec)
+        return top
+
+    out = []
+    for (seq, client_seq, ref_seq, min_seq, client, _n, ts), edits in \
+            _parse(rec.blob):
+        got = []
+        for kind, f in edits:
+            name = _NAMES[kind]
+            if kind == R_INSERT:
+                got.append({"kind": name, "parent": nodes[f[0]],
+                            "field": fields[f[1]], "anchor": anchor(f[2]),
+                            "content": content(f[3])})
+            elif kind == R_REMOVE:
+                got.append({"kind": name, "ids": [nodes[i] for i in f[0]]})
+            elif kind == R_SET:
+                got.append({"kind": name, "id": nodes[f[0]],
+                            "value": None if f[1] == VALUE_NULL
+                            else values[f[1]]})
+            else:
+                edit = {"kind": name, "ids": [nodes[i] for i in f[3]],
+                        "parent": nodes[f[0]], "field": fields[f[1]],
+                        "anchor": anchor(f[2])}
+                if kind == R_REVIVE:
+                    edit["content"] = content(f[4])
+                got.append(edit)
+        out.append(SequencedMessage(
+            seq=seq, client_id=None if client == -1 else rec.clients[client],
+            client_seq=client_seq, ref_seq=ref_seq, min_seq=min_seq,
+            type=MessageType.OP, contents={"edits": got}, timestamp=ts))
+    return out
+
+
+def _route_py(blob: bytes) -> Optional[str]:
+    for _header, edits in _parse(blob):
+        for kind, f in edits:
+            if kind == R_REVIVE:
+                return "revive"
+            if kind == R_MOVE and len(f[3]) != 1:
+                return "multi_id_move"
+    return None
+
+
+def removal_times(rec: TreeRecords) -> Dict[str, int]:
+    """Each removed node's first remover's seq (the pack's
+    ``removal_time``), read from the stream."""
+    out: Dict[str, int] = {}
+    for header, edits in _parse(rec.blob):
+        for kind, f in edits:
+            if kind == R_REMOVE:
+                for i in f[0]:
+                    out.setdefault(rec.nodes[i], header[0])
+    return out
+
+
+# -- the native library --------------------------------------------------------
+
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_tried = False
+
+
+def load_library() -> Optional[ctypes.CDLL]:
+    """The compiled tree packer, or None (the Python pack runs)."""
+    global _lib, _lib_tried
+    if _lib_tried:
+        return _lib
+    _lib_tried = True
+    from .native_pack import build_native
+
+    path = build_native("treepack")
+    if path is None:
+        return None
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        return None
+    lib.treepack_route.restype = ctypes.c_int
+    lib.treepack_route.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.treepack_begin.restype = ctypes.c_void_p
+    lib.treepack_begin.argtypes = [
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.treepack_containers.restype = None
+    lib.treepack_containers.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.treepack_finish.restype = ctypes.c_int
+    lib.treepack_finish.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_void_p)]
+    lib.treepack_free.restype = None
+    lib.treepack_free.argtypes = [ctypes.c_void_p]
+    _lib = lib
+    return lib
+
+
+def route_records(rec: TreeRecords) -> Optional[str]:
+    """``"revive"`` / ``"multi_id_move"`` when the stream holds one
+    (whichever comes first), else None: ``known_tree_fallback``'s verdict,
+    read from the records."""
+    lib = load_library()
+    if lib is None:
+        return _route_py(rec.blob)
+    code = lib.treepack_route(rec.blob, len(rec.blob))
+    if code < 0:
+        raise ValueError("malformed tree record stream")
+    return ROUTES.get(code)
+
+
+class TableInterner(Interner):
+    """An ``Interner`` over a finished table; its key map is made on first
+    use (extraction reads only ``values``)."""
+
+    def __init__(self, values: List[Any]) -> None:
+        self.values = values
+
+    def __getattr__(self, name):
+        if name != "_by_key":
+            raise AttributeError(name)
+        self._by_key = {self._hashable(v): i
+                        for i, v in enumerate(self.values)}
+        return self._by_key
+
+
+def _intern_values(recs: Sequence[TreeRecords]):
+    """The batch-global value interner (the Python pack's, in its order)
+    and each document's doc-local -> global map, concatenated, with
+    ``D + 1`` offsets."""
+    values = Interner()
+    by_key = values._by_key
+    maps: List[np.ndarray] = []
+    offs = np.zeros(len(recs) + 1, np.int64)
+    for d, rec in enumerate(recs):
+        k = rec.n_packed_values
+        keys = (rec.value_keys or rec.values)[:k]
+        for i in [i for i, key in enumerate(keys) if key not in by_key]:
+            by_key[keys[i]] = len(values.values)
+            values.values.append(rec.values[i])
+        maps.append(np.fromiter(map(by_key.__getitem__, keys), np.int32, k))
+        offs[d + 1] = offs[d] + k
+    flat = np.concatenate(maps) if maps else np.zeros(0, np.int32)
+    return values, np.ascontiguousarray(flat, np.int32), offs
+
+
+def pack_records(docs, N: int, T: int):
+    """``pack_tree_batch``'s ``(TreeState, TreeEdits, meta)`` for
+    documents that all carry records and no base summary, from the native
+    library at the buckets ``(N, T)``; None without the library.  The meta
+    also counts the documents packed here (``native_docs``)."""
+    from .interning import next_bucket
+    from .tree_kernel import TreeEdits, TreeState, _RecordDocPack
+
+    lib = load_library()
+    if lib is None:
+        return None
+    recs = [doc.records for doc in docs]
+    D = len(recs)
+    values, vmap, voffs = _intern_values(recs)
+    blobs = (ctypes.c_char_p * D)(*[r.blob for r in recs])
+    lens = np.asarray([len(r.blob) for r in recs], np.int64)
+    facts = np.empty((D, 7), np.int32)
+    bad = ctypes.c_int32(-1)
+    handle = lib.treepack_begin(D, blobs, lens.ctypes.data, vmap.ctypes.data,
+                                voffs.ctypes.data, facts.ctypes.data,
+                                ctypes.byref(bad))
+    if not handle:
+        raise ValueError(f"{docs[bad.value].doc_id}: malformed tree record "
+                         "stream")
+    try:
+        n_nodes, n_cont, t_rows = (np.ascontiguousarray(facts[:, i])
+                                   for i in range(3))
+        C = next_bucket(max(int(n_cont.max(initial=0)), 1), floor=8)
+        conts = np.empty((int(n_cont.sum()), 2), np.int32)
+        lib.treepack_containers(handle, conts.ctypes.data)
+        st = {f: np.empty((D, C if f in ("head", "container_parent") else N),
+                          np.int32)
+              for f in TreeState._fields if f != "overflow"}
+        st["overflow"] = np.zeros((D,), np.bool_)
+        ed = {f: np.empty((D, T), np.int32) for f in TreeEdits._fields}
+        order = [st[f] for f in TreeState._fields if f != "overflow"] \
+            + [ed[f] for f in TreeEdits._fields]
+        ptrs = (ctypes.c_void_p * len(order))(*[a.ctypes.data for a in order])
+        rc = lib.treepack_finish(handle, N, C, T, ptrs)
+    finally:
+        lib.treepack_free(handle)
+    if rc != 0:
+        raise ValueError(f"{docs[-1 - rc].doc_id}: tree records overflow the "
+                         f"buckets N={N}, C={C}, T={T}")
+    doc_packs = []
+    at = 0
+    for d, rec in enumerate(recs):
+        n, c = int(n_nodes[d]), int(n_cont[d])
+        if n != rec.n_packed or len(rec.node_types) != n:
+            raise ValueError(f"{docs[d].doc_id}: tree records' node table "
+                             "is not in the pack's order")
+        pack = _RecordDocPack(rec)
+        pack.node_ids = TableInterner(rec.nodes[:n])
+        pack.node_types = list(rec.node_types)
+        pack.containers = TableInterner(
+            [(int(p), rec.fields[f]) for p, f in conts[at:at + c].tolist()])
+        at += c
+        pack.fallback_reason = FALLBACKS[int(facts[d, 6])]
+        pack.header_seq = int(facts[d, 3])
+        pack.base_min_seq = int(facts[d, 4])
+        pack.boundary = int(facts[d, 5])
+        doc_packs.append(pack)
+    meta = {"doc_packs": doc_packs, "values": values, "docs": docs,
+            "n_nodes": n_nodes, "n_cont": n_cont, "t_rows": t_rows,
+            "native_docs": D}
+    return TreeState(**st), TreeEdits(**ed), meta

@@ -175,15 +175,17 @@ def _split_tree_digest(export, digested: bool):
     return export[:-1], export[-1]
 
 
-def summaries_from_tree_export(meta, arr, stats: Optional[dict] = None
-                               ) -> List:
+def summaries_from_tree_export(meta, arr, stats: Optional[dict] = None,
+                               counts: Optional[dict] = None) -> List:
     """Downloaded final-forest planes → canonical summaries, routing
     pack-time and overflow fallbacks to the oracle (counted per reason).
     ``arr`` is the fetched core tuple in ``TreeState`` field order —
     either a whole chunk's rows or the tier-0 changed-rows gather (the
-    meta is then the sliced sub-meta)."""
+    meta is then the sliced sub-meta).  ``counts`` (when given) gets the
+    forest nodes written (``extract_nodes``)."""
     state_np = dict(zip(TreeState._fields, arr))
-    return [summary_from_state(meta, state_np, d, stats=stats)
+    return [summary_from_state(meta, state_np, d, stats=stats,
+                               counts=counts)
             for d in range(len(meta["docs"]))]
 
 
@@ -425,7 +427,7 @@ TREE_FAMILY = KernelFamily(
     known_fallback=known_tree_fallback,
     fallback_summary=oracle_fallback_summary,
     pack=pack_tree_batch,
-    bypass=lambda d: False,  # tree documents have no binary-stream form
+    bypass=lambda d: d.records is not None,
     entry_rows=_tree_entry_rows,
     entry_nbytes=_tree_entry_nbytes,
     extend=_extend_tree,
@@ -438,7 +440,7 @@ TREE_FAMILY = KernelFamily(
     fetch=export_to_numpy,
     gather_rows=gather_export_rows,
     extract=lambda meta, arr, st: summaries_from_tree_export(
-        meta, arr, stats=st),
+        meta, arr, stats=st, counts=st),
     per_doc_meta=("n_nodes", "n_cont", "t_rows"),
     make_pad=lambda: TreeDocInput(doc_id="\x00pad", ops=[]),
     pad_token=_mt_pad_token,

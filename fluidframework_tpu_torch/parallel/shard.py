@@ -277,6 +277,7 @@ def replay_family_sharded(
         delta_route,
         delta_store_all,
         delta_sub_meta,
+        merge_extract_counts,
         seed_stage,
     )
 
@@ -287,9 +288,7 @@ def replay_family_sharded(
         device_cache.set_sharding(mesh)
 
     def _bump_stats(st: dict) -> None:
-        if stats is not None:
-            for k, v in st.items():
-                stats[k] = stats.get(k, 0) + v
+        merge_extract_counts(st, stats, stage)
 
     def fold_batch_export(batch):
         n_real = len(batch)

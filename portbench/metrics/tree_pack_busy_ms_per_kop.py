@@ -1,0 +1,8 @@
+"""The tree family's pack leg: its busy time (``stage["pack"]``, summed
+over the pack pool's threads) over the traced window, in ms a thousand
+edits."""
+
+
+def read(r):
+    busy = r.stage.get("pack")
+    return busy * 1e3 / (r.ops / 1e3) if busy and r.ops else None
