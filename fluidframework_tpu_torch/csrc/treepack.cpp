@@ -1,4 +1,5 @@
-// libtreepack — native pack of SharedTree edit records for the tree fold.
+// libtreepack — native pack of SharedTree edit records for the tree fold,
+// and the canonical summary headers of the fold's final forest.
 //
 // The host half of bulk SharedTree catch-up turns each document's
 // sequenced changesets into the forest and edit planes the tree fold reads
@@ -44,7 +45,21 @@
 //   treepack_containers(...) — each document's (node, field) containers
 //   treepack_finish(...)     — fill the [D, *] planes at the chosen buckets
 //   treepack_free(...)       — release a batch
+//   treepack_json_offsets(...) — where each element of a JSON array lies
+//   treepack_split(...)      — where each string of a joined table lies
+//   treepack_extract(...)    — final forest planes → canonical headers
+//
+// treepack_extract writes, per document, the exact bytes of
+// canonical_json(root_obj) that tree_kernel.summary_from_state builds from
+// the same planes: sorted keys, minimal separators, ensure_ascii=False
+// (UTF-8 passes through; only '"', '\\' and control characters escape, as
+// python json.dumps).  A document whose planes or tables hold anything
+// that route would not turn into those bytes without an error (a chain
+// cycle, a node in two chains, an index outside its plane, a nesting
+// deeper than kMaxNest, a lone surrogate in an emitted string) gets a
+// nonzero status and no bytes: the caller takes the Python route for it.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cstring>
@@ -394,6 +409,297 @@ void fill(int32_t* row, int64_t n, int32_t v) {
     for (int64_t i = 0; i < n; ++i) row[i] = v;
 }
 
+// -- the summary writer -------------------------------------------------------
+
+// The Python route nests two interpreter frames a forest level; a nesting
+// this deep is far inside its recursion limit, and a deeper one is left to
+// it (it may raise, and route the document to the oracle).
+constexpr int kMaxNest = 128;
+
+// Writer statuses: written, a cycle (a chain longer than the document's
+// rows, or a node reached twice), anything else the Python route decides.
+constexpr int32_t kWritten = 0, kCycle = 1, kPythonRoute = 2;
+
+// A string table: piece i of ``blob`` is [offs[i], offs[i + 1] - 1) (the
+// caller joins the strings with one byte between them).
+struct Table {
+    const uint8_t* blob;
+    const int64_t* offs;
+    const uint8_t* at(int64_t i) const { return blob + offs[i]; }
+    int64_t len(int64_t i) const { return offs[i + 1] - 1 - offs[i]; }
+};
+
+struct Writer {
+    uint8_t* out;
+    int64_t cap;
+    int64_t w = 0;  // keeps counting past the capacity
+    bool lone = false;  // a lone surrogate (ED A0..BF ..) was written
+
+    void put(const uint8_t* p, int64_t n) {
+        if (w + n <= cap) std::memcpy(out + w, p, n);
+        w += n;
+    }
+    void put_lit(const char* s) {
+        put(reinterpret_cast<const uint8_t*>(s), std::strlen(s));
+    }
+    void put_ch(char c) {
+        if (w < cap) out[w] = static_cast<uint8_t>(c);
+        ++w;
+    }
+    void put_int(int64_t v) {
+        char tmp[24];
+        int n = 0;
+        uint64_t u = v < 0 ? 0 - static_cast<uint64_t>(v)
+                           : static_cast<uint64_t>(v);
+        char digits[20];
+        int nd = 0;
+        do { digits[nd++] = static_cast<char>('0' + u % 10); u /= 10; }
+        while (u > 0);
+        if (v < 0) tmp[n++] = '-';
+        while (nd > 0) tmp[n++] = digits[--nd];
+        put(reinterpret_cast<const uint8_t*>(tmp), n);
+    }
+    // A JSON string as json.dumps(ensure_ascii=False) writes it.
+    void put_str(const uint8_t* p, int64_t n) {
+        put_ch('"');
+        int64_t run = 0;
+        for (int64_t i = 0; i < n; ++i) {
+            const uint8_t ch = p[i];
+            if (!(ch == '"' || ch == '\\' || ch < 0x20)) {
+                if (ch == 0xED && i + 1 < n && p[i + 1] >= 0xA0) lone = true;
+                ++run;
+                continue;
+            }
+            if (run) put(p + i - run, run);
+            run = 0;
+            switch (ch) {
+                case '"': put_lit("\\\""); break;
+                case '\\': put_lit("\\\\"); break;
+                case '\b': put_lit("\\b"); break;
+                case '\t': put_lit("\\t"); break;
+                case '\n': put_lit("\\n"); break;
+                case '\f': put_lit("\\f"); break;
+                case '\r': put_lit("\\r"); break;
+                default: {
+                    static const char* hex = "0123456789abcdef";
+                    const char u[6] = {'\\', 'u', '0', '0', hex[ch >> 4],
+                                       hex[ch & 0xF]};
+                    put(reinterpret_cast<const uint8_t*>(u), 6);
+                }
+            }
+        }
+        if (run) put(p + n - run, run);
+        put_ch('"');
+    }
+};
+
+// One document's planes, tables and scratch for the writer.
+struct DocView {
+    const int32_t *head, *next, *removed, *ins, *val, *vseq, *cparent;
+    int32_t N, C, n, nc;
+    int64_t msn;
+    const int32_t* owner;       // [nc] each container's owning node
+    Table ids, types, fields;
+    int64_t id0, field0;        // this document's first piece
+    const uint8_t* vals;
+    const int64_t* val_offs;
+    int32_t n_vals;
+
+    // scratch, reused across documents
+    std::vector<int32_t> chain_start, chain_len, chain_nodes, kept;
+    std::vector<int32_t> by_owner, owner_start, fill_at;
+    std::vector<uint8_t> in_chain, emitted;
+    std::vector<int32_t> limbo;
+    int64_t emitted_nodes = 0;
+
+    bool keep(int32_t i) const {
+        const int32_t rs = removed[i];
+        return !(rs != kNotRemoved && rs <= msn);
+    }
+    // Byte order of two pieces, which is the code-point order of the
+    // strings; -1, 0 or 1.
+    static int compare(const Table& t, int64_t a, int64_t b) {
+        const int64_t la = t.len(a), lb = t.len(b);
+        const int c = std::memcmp(t.at(a), t.at(b),
+                                  static_cast<size_t>(std::min(la, lb)));
+        if (c != 0) return c < 0 ? -1 : 1;
+        return la < lb ? -1 : (la > lb ? 1 : 0);
+    }
+    bool field_less(int32_t a, int32_t b) const {
+        const int c = compare(fields, field0 + a, field0 + b);
+        return c != 0 ? c < 0 : a < b;
+    }
+    bool id_less(int32_t a, int32_t b) const {
+        return compare(ids, id0 + a, id0 + b) < 0;
+    }
+
+    // Walk every container's chain once; each node may lie in one chain.
+    int32_t walk_chains() {
+        chain_start.assign(nc, 0);
+        chain_len.assign(nc, 0);
+        kept.assign(nc, 0);
+        chain_nodes.clear();
+        in_chain.assign(N, 0);
+        for (int32_t c = 0; c < nc; ++c) {
+            chain_start[c] = static_cast<int32_t>(chain_nodes.size());
+            int32_t cur = head[c];
+            int32_t len = 0;
+            while (cur != kNil) {
+                if (cur < 0 || cur >= N) return kPythonRoute;
+                if (len >= n) return kCycle;
+                if (in_chain[cur]) return kCycle;
+                in_chain[cur] = 1;
+                chain_nodes.push_back(cur);
+                kept[c] += keep(cur);
+                ++len;
+                cur = next[cur];
+            }
+            chain_len[c] = len;
+        }
+        return kWritten;
+    }
+
+    // Containers by owning node (owners in [0, n)), each owner's sorted by
+    // field name: code-point order is UTF-8 byte order.
+    void group_containers() {
+        owner_start.assign(static_cast<size_t>(n) + 1, 0);
+        for (int32_t c = 0; c < nc; ++c)
+            if (owner[c] >= 0 && owner[c] < n) ++owner_start[owner[c] + 1];
+        for (int32_t i = 0; i < n; ++i) owner_start[i + 1] += owner_start[i];
+        by_owner.assign(owner_start[n], 0);
+        fill_at.assign(owner_start.begin(), owner_start.end() - 1);
+        for (int32_t c = 0; c < nc; ++c)
+            if (owner[c] >= 0 && owner[c] < n)
+                by_owner[fill_at[owner[c]]++] = c;
+        for (int32_t i = 0; i < n; ++i) {
+            if (owner_start[i + 1] - owner_start[i] > 1)
+                std::sort(by_owner.begin() + owner_start[i],
+                          by_owner.begin() + owner_start[i + 1],
+                          [this](int32_t a, int32_t b) {
+                              return field_less(a, b);
+                          });
+        }
+    }
+
+    // The fields object of node ``i`` (assumed to hold a kept kid).
+    int32_t fields_of(Writer& wr, int32_t i, int depth) {
+        wr.put_ch('{');
+        bool first = true;
+        if (i < n) {
+            for (int32_t k = owner_start[i]; k < owner_start[i + 1]; ++k) {
+                const int32_t c = by_owner[k];
+                if (!kept[c]) continue;
+                if (!first) wr.put_ch(',');
+                first = false;
+                wr.put_str(fields.at(field0 + c), fields.len(field0 + c));
+                wr.put_lit(":[");
+                bool kid0 = true;
+                for (int32_t j = 0; j < chain_len[c]; ++j) {
+                    const int32_t kid = chain_nodes[chain_start[c] + j];
+                    if (!keep(kid)) continue;
+                    if (!kid0) wr.put_ch(',');
+                    kid0 = false;
+                    const int32_t st = node(wr, kid, depth + 1);
+                    if (st != kWritten) return st;
+                }
+                wr.put_ch(']');
+            }
+        }
+        wr.put_ch('}');
+        return kWritten;
+    }
+
+    bool has_fields(int32_t i) const {
+        if (i >= n) return false;
+        for (int32_t k = owner_start[i]; k < owner_start[i + 1]; ++k)
+            if (kept[by_owner[k]]) return true;
+        return false;
+    }
+
+    int32_t node(Writer& wr, int32_t i, int depth) {
+        if (i >= n) return kPythonRoute;
+        if (emitted[i]) return kCycle;
+        if (depth > kMaxNest) return kPythonRoute;
+        emitted[i] = 1;
+        ++emitted_nodes;
+        wr.put_ch('{');
+        if (has_fields(i)) {
+            wr.put_lit("\"fields\":");
+            const int32_t st = fields_of(wr, i, depth);
+            if (st != kWritten) return st;
+            wr.put_ch(',');
+        }
+        wr.put_lit("\"id\":");
+        wr.put_str(ids.at(id0 + i), ids.len(id0 + i));
+        const int32_t is = ins[i];
+        wr.put_lit(",\"insertSeq\":");
+        wr.put_int(is <= msn ? 0 : is);
+        const int32_t rs = removed[i];
+        if (rs != kNotRemoved) {
+            wr.put_lit(",\"removedSeq\":");
+            wr.put_int(rs);
+        }
+        wr.put_lit(",\"type\":");
+        wr.put_str(types.at(id0 + i), types.len(id0 + i));
+        const int32_t v = val[i];
+        if (v != kNoValue) {
+            if (v < 0 || v >= n_vals) return kPythonRoute;
+            wr.put_lit(",\"value\":");
+            wr.put(vals + val_offs[v], val_offs[v + 1] - 1 - val_offs[v]);
+            const int32_t vs = vseq[i];
+            wr.put_lit(",\"valueSeq\":");
+            wr.put_int(vs <= msn ? 0 : vs);
+        }
+        wr.put_ch('}');
+        return kWritten;
+    }
+
+    int32_t write(Writer& wr, int64_t seq) {
+        if (n <= 0 || n > N || nc < 0 || nc > C) return kPythonRoute;
+        int32_t st = walk_chains();
+        if (st != kWritten) return st;
+        group_containers();
+        emitted.assign(n, 0);
+        emitted_nodes = 0;
+        wr.put_lit("{\"fields\":");
+        st = fields_of(wr, 0, 0);
+        if (st != kWritten) return st;
+        // Limbo: kept nodes linked under an owner that is not kept.
+        limbo.clear();
+        for (int32_t c = 0; c < nc; ++c) {
+            const int32_t o = cparent[c];
+            if (o == kNil) continue;
+            if (o < 0 || o >= N) return kPythonRoute;
+            if (keep(o)) continue;
+            for (int32_t j = 0; j < chain_len[c]; ++j) {
+                const int32_t i = chain_nodes[chain_start[c] + j];
+                if (keep(i)) limbo.push_back(i);
+            }
+        }
+        if (!limbo.empty()) {
+            for (int32_t i : limbo)
+                if (i >= n) return kPythonRoute;
+            std::stable_sort(limbo.begin(), limbo.end(),
+                             [this](int32_t a, int32_t b) {
+                                 return id_less(a, b);
+                             });
+            wr.put_lit(",\"limbo\":[");
+            for (size_t k = 0; k < limbo.size(); ++k) {
+                if (k) wr.put_ch(',');
+                st = node(wr, limbo[k], 1);
+                if (st != kWritten) return st;
+            }
+            wr.put_ch(']');
+        }
+        wr.put_lit(",\"minSeq\":");
+        wr.put_int(msn);
+        wr.put_lit(",\"seq\":");
+        wr.put_int(seq);
+        wr.put_ch('}');
+        return wr.lone ? kPythonRoute : kWritten;
+    }
+};
+
 }  // namespace
 
 extern "C" {
@@ -554,5 +860,128 @@ int treepack_finish(void* handle, int32_t N, int32_t C, int32_t T,
 }
 
 void treepack_free(void* handle) { delete static_cast<Batch*>(handle); }
+
+// Where each of the ``n`` elements of the JSON array text ``blob`` (as
+// canonical_json writes a list: no whitespace) lies: element i is
+// [offs[i], offs[i + 1] - 1).  Returns 0, or -1 when the text does not
+// hold ``n`` elements.
+int treepack_json_offsets(const uint8_t* blob, int64_t len, int32_t n,
+                          int64_t* offs) {
+    if (len < 2 || blob[0] != '[' || blob[len - 1] != ']') return -1;
+    if (n == 0) {
+        offs[0] = len;
+        return len == 2 ? 0 : -1;
+    }
+    int32_t k = 0;
+    offs[k++] = 1;
+    int depth = 0;
+    bool in_str = false;
+    for (int64_t i = 1; i < len - 1; ++i) {
+        const uint8_t ch = blob[i];
+        if (in_str) {
+            if (ch == '\\') ++i;
+            else if (ch == '"') in_str = false;
+            continue;
+        }
+        if (ch == '"') in_str = true;
+        else if (ch == '[' || ch == '{') ++depth;
+        else if (ch == ']' || ch == '}') --depth;
+        else if (ch == ',' && depth == 0) {
+            if (k >= n) return -1;
+            offs[k++] = i + 1;
+        }
+    }
+    if (k != n || depth != 0 || in_str) return -1;
+    offs[n] = len;
+    return 0;
+}
+
+// Where the ``want`` strings of a table joined with NUL bytes lie: piece i
+// is [offs[i], offs[i + 1] - 1).  Returns 0, or -1 when ``blob`` holds
+// another number of pieces (a string holds a NUL: the caller measures the
+// strings itself).
+int treepack_split(const uint8_t* blob, int64_t len, int64_t want,
+                   int64_t* offs) {
+    if (want == 0) {
+        offs[0] = len + 1;
+        return len == 0 ? 0 : -1;
+    }
+    int64_t k = 0;
+    offs[k++] = 0;
+    const uint8_t* end = blob + len;
+    for (const uint8_t* q = blob;
+         (q = static_cast<const uint8_t*>(
+              std::memchr(q, 0, static_cast<size_t>(end - q))));
+         ++q) {
+        if (k >= want) return -1;
+        offs[k++] = (q - blob) + 1;
+    }
+    if (k != want) return -1;
+    offs[want] = len + 1;
+    return 0;
+}
+
+// Canonical headers of ``D`` documents from their final forest planes.
+// ``rows[k]`` is document k's row in the planes; ``planes``: head, next,
+// removed_seq, insert_seq, value, value_seq, container_parent, each with
+// its row stride in ``strides`` (elements); widths N (node planes) and C.
+// Per document: ``msn`` (the larger of final_msn and the base's minSeq),
+// ``seq`` (the header's), ``n_nodes`` interned rows, ``n_cont``
+// containers and their owners (``cont_owner``, document after document).
+// The id and type tables hold ``n_nodes[k]`` strings a document, the field
+// table ``n_cont[k]``, each with its treepack_split offsets; ``vals`` is
+// the value table's canonical JSON array, ``val_offs`` from
+// treepack_json_offsets.  Writes document k's bytes at
+// [out_offs[k], out_offs[k + 1]), its emitted nodes and its status.
+// Returns 0, or, when ``cap`` is too small, -(bytes needed) - 2.
+int64_t treepack_extract(
+    int32_t D, const int32_t* rows, const int32_t* const* planes,
+    const int64_t* strides, int32_t N, int32_t C,
+    const int64_t* msn, const int64_t* seq,
+    const int32_t* n_nodes, const int32_t* n_cont, const int32_t* cont_owner,
+    const uint8_t* ids, const int64_t* id_offs,
+    const uint8_t* types, const int64_t* type_offs,
+    const uint8_t* fields, const int64_t* field_offs,
+    const uint8_t* vals, const int64_t* val_offs, int32_t n_vals,
+    uint8_t* out, int64_t cap, int64_t* out_offs, int64_t* out_nodes,
+    int32_t* status) {
+    Writer wr{out, cap};
+    DocView v;
+    v.N = N;
+    v.C = C;
+    v.ids = Table{ids, id_offs};
+    v.types = Table{types, type_offs};
+    v.fields = Table{fields, field_offs};
+    v.vals = vals;
+    v.val_offs = val_offs;
+    v.n_vals = n_vals;
+    int64_t id0 = 0, field0 = 0;
+    for (int32_t k = 0; k < D; ++k) {
+        const int64_t r = rows[k];
+        v.head = planes[0] + r * strides[0];
+        v.next = planes[1] + r * strides[1];
+        v.removed = planes[2] + r * strides[2];
+        v.ins = planes[3] + r * strides[3];
+        v.val = planes[4] + r * strides[4];
+        v.vseq = planes[5] + r * strides[5];
+        v.cparent = planes[6] + r * strides[6];
+        v.n = n_nodes[k];
+        v.nc = n_cont[k];
+        v.msn = msn[k];
+        v.owner = cont_owner + field0;
+        v.id0 = id0;
+        v.field0 = field0;
+        const int64_t start = wr.w;
+        out_offs[k] = start;
+        wr.lone = false;
+        status[k] = v.write(wr, seq[k]);
+        out_nodes[k] = status[k] == kWritten ? v.emitted_nodes : 0;
+        if (status[k] != kWritten) wr.w = start;
+        id0 += n_nodes[k];
+        field0 += n_cont[k];
+    }
+    out_offs[D] = wr.w;
+    return wr.w <= cap ? 0 : -(wr.w) - 2;
+}
 
 }  // extern "C"

@@ -562,8 +562,9 @@ HOST_CPU_KEYS = ("pack_cpu", "extract_cpu")
 
 #: counts an extract task returns beside its ``stats`` that belong to the
 #: stage: ``extract_nodes``, the forest nodes a tree extraction wrote into
-#: summaries (0 for merge-tree)
-EXTRACT_STAGE_COUNTS = ("extract_nodes",)
+#: summaries, and ``extract_native_docs``, the documents whose header the
+#: tree family's native writer wrote (both 0 for merge-tree)
+EXTRACT_STAGE_COUNTS = ("extract_nodes", "extract_native_docs")
 
 
 def merge_extract_counts(st: dict, stats: Optional[dict],

@@ -679,12 +679,14 @@ def pack_tree_batch(docs: Sequence[TreeDocInput]):
     whose documents all carry records and no base summary packs natively
     (``tree_native.pack_records``: the same planes and meta, bit for bit,
     and ``meta["native_docs"]``); without the native library, or for any
-    other batch, the pack below runs on the documents' messages."""
+    other batch, the pack below runs on the documents' messages.  Either
+    meta holds ``value_json``, the value table as the native summary
+    writer reads it (``tree_native.value_table``)."""
+    from .tree_native import pack_records, value_table
+
     N, T = tree_buckets(docs)
     if docs and all(d.records is not None and d.base_summary is None
                     for d in docs):
-        from .tree_native import pack_records
-
         packed = pack_records(docs, N, T)
         if packed is not None:
             return packed
@@ -723,6 +725,7 @@ def pack_tree_batch(docs: Sequence[TreeDocInput]):
                              np.int32),
         "t_rows": np.asarray([len(rows) for _n, _c, rows in packed_docs],
                              np.int32),
+        "value_json": value_table(values),
     }
     return TreeState(**st), TreeEdits(**ed), meta
 

@@ -18,18 +18,27 @@ Without a toolchain it returns None and the Python pack runs on the
 decoded messages.  ``decode_tree_ops`` gives back the messages the stream
 was encoded from (the oracle's route: MAX_DEPTH overflow, purged-parent
 inserts), and ``route_records`` the pre-pack routing verdict.
+
+``write_headers`` is the extract side: the same library writes the
+canonical ``header`` bytes of ``tree_kernel.summary_from_state`` for a
+slice's documents from their downloaded final-forest planes, one call, the
+interpreter lock released; ``value_table`` is the value table it reads,
+serialized once a pack.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
+import operator
 import struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..protocol.messages import MessageType, SequencedMessage
+from ..protocol.summary import canonical_json
 from .interning import Interner
 
 _HEADER = struct.Struct("<6id")
@@ -439,6 +448,20 @@ def load_library() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_void_p)]
     lib.treepack_free.restype = None
     lib.treepack_free.argtypes = [ctypes.c_void_p]
+    lib.treepack_json_offsets.restype = ctypes.c_int
+    lib.treepack_json_offsets.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+    lib.treepack_split.restype = ctypes.c_int
+    lib.treepack_split.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_void_p]
+    lib.treepack_extract.restype = ctypes.c_int64
+    lib.treepack_extract.argtypes = (
+        [ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int32, ctypes.c_int32]
+        + [ctypes.c_void_p] * 5
+        + [ctypes.c_char_p, ctypes.c_void_p] * 3
+        + [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int32]
+        + [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3)
     _lib = lib
     return lib
 
@@ -555,5 +578,143 @@ def pack_records(docs, N: int, T: int):
         doc_packs.append(pack)
     meta = {"doc_packs": doc_packs, "values": values, "docs": docs,
             "n_nodes": n_nodes, "n_cont": n_cont, "t_rows": t_rows,
-            "native_docs": D}
+            "native_docs": D, "value_json": value_table(values)}
     return TreeState(**st), TreeEdits(**ed), meta
+
+
+# -- the native summary writer ------------------------------------------------
+
+
+#: the planes the writer reads, in its order
+_WRITER_PLANES = ("head", "next", "removed_seq", "insert_seq", "value",
+                  "value_seq", "container_parent")
+#: the writer's statuses: written; a cycle (a chain longer than the
+#: document's rows, or a node reached twice); any other is the Python
+#: route's to decide
+WRITTEN, CYCLE = 0, 1
+
+
+def value_table(values: Interner):
+    """``values`` as the writer reads them: ``(count, bytes, offsets)``,
+    the table's canonical JSON array and where each value lies in it; None
+    without the library, or where the list has no canonical JSON (the
+    Python route then decides each document)."""
+    lib = load_library()
+    if lib is None:
+        return None
+    vals = values.values
+    try:
+        blob = canonical_json(vals)
+    except (TypeError, ValueError, RecursionError):
+        return None
+    offs = np.empty(len(vals) + 1, np.int64)
+    if lib.treepack_json_offsets(blob, len(blob), len(vals),
+                                 offs.ctypes.data) != 0:
+        return None
+    return len(vals), blob, offs
+
+
+def _string_table(lib, strings: List[str]):
+    """``strings`` as the writer reads a table: their UTF-8 joined with NUL
+    bytes, and where each lies (``treepack_split``'s offsets).  Where a
+    string holds a NUL or a lone surrogate, each string is measured here
+    (the writer leaves a document that emits a lone surrogate to the
+    Python route)."""
+    n = len(strings)
+    offs = np.empty(n + 1, np.int64)
+    try:
+        blob = "\x00".join(strings).encode()
+        if lib.treepack_split(blob, len(blob), n, offs.ctypes.data) == 0:
+            return blob, offs
+    except UnicodeEncodeError:
+        pass
+    parts = [s.encode("utf-8", "surrogatepass") for s in strings]
+    offs[0] = 0
+    np.cumsum(np.fromiter(map(len, parts), np.int64, n) + 1, out=offs[1:])
+    return b"\x00".join(parts), offs
+
+
+def _row_plane(a: np.ndarray) -> np.ndarray:
+    """A downloaded plane as it is, unless the writer cannot step its rows
+    (not int32, or elements not adjacent within a row)."""
+    if a.dtype != np.int32 or (a.shape[1] > 1 and a.strides[1] != 4) \
+            or a.strides[0] % 4:
+        return np.ascontiguousarray(a, np.int32)
+    return a
+
+
+def write_headers(meta: dict, state_np: dict, rows: Sequence[int]):
+    """The canonical ``header`` bytes ``summary_from_state`` writes for the
+    documents at ``rows`` of ``meta`` and of the final-forest planes
+    ``state_np`` (downloaded, read in place), from one call of the native
+    writer with the interpreter lock released: per row ``(header, emitted
+    nodes)``, or ``(None, status)`` where the writer left the document to
+    the Python route (``CYCLE``: a chain cycle).  None for every row
+    without the library or the value table, or where a table holds what is
+    not a string."""
+    lib = load_library()
+    table = meta["value_json"] if "value_json" in meta \
+        else value_table(meta["values"])
+    if lib is None or table is None:
+        return None
+    n_vals, val_blob, val_offs = table
+    packs, docs = meta["doc_packs"], meta["docs"]
+    sel = [packs[d] for d in rows]
+    k = len(sel)
+    chain = itertools.chain.from_iterable
+    try:
+        conts = list(chain(p.containers.values for p in sel))
+        ids, id_offs = _string_table(
+            lib, list(chain(p.node_ids.values for p in sel)))
+        types, type_offs = _string_table(
+            lib, list(chain(p.node_types for p in sel)))
+        fields, field_offs = _string_table(
+            lib, list(map(operator.itemgetter(1), conts)))
+        owners = np.fromiter(map(operator.itemgetter(0), conts), np.int32,
+                             len(conts))
+        msn = np.fromiter((max(docs[d].final_msn, p.base_min_seq)
+                           for d, p in zip(rows, sel)), np.int64, k)
+        seq = np.fromiter((p.header_seq for p in sel), np.int64, k)
+    except (TypeError, ValueError, OverflowError):
+        return None
+    n_nodes = np.fromiter((len(p.node_ids.values) for p in sel), np.int32, k)
+    n_types = np.fromiter((len(p.node_types) for p in sel), np.int32, k)
+    if not np.array_equal(n_nodes, n_types):
+        return None
+    n_cont = np.fromiter((len(p.containers.values) for p in sel), np.int32,
+                         k)
+    planes = [_row_plane(state_np[f]) for f in _WRITER_PLANES]
+    N, C = planes[1].shape[1], planes[0].shape[1]
+    if any(a.shape[1] != (C if f in ("head", "container_parent") else N)
+           for f, a in zip(_WRITER_PLANES, planes)):
+        return None
+    ptrs = (ctypes.c_void_p * len(planes))(*[a.ctypes.data for a in planes])
+    strides = np.asarray([a.strides[0] // 4 for a in planes], np.int64)
+    row_idx = np.asarray(rows, np.int32)
+    out_offs = np.empty(k + 1, np.int64)
+    out_nodes = np.empty(k, np.int64)
+    status = np.empty(k, np.int32)
+    per_node = 96 + 2 * len(val_blob) // max(n_vals, 1)
+    cap = 2 * (len(ids) + len(types)) + len(fields) \
+        + per_node * int(n_nodes.sum()) + 64 * k + 64
+    for _attempt in range(2):
+        out = np.empty(cap, np.uint8)
+        rc = lib.treepack_extract(
+            k, row_idx.ctypes.data, ptrs, strides.ctypes.data, N, C,
+            msn.ctypes.data, seq.ctypes.data, n_nodes.ctypes.data,
+            n_cont.ctypes.data, owners.ctypes.data,
+            ids, id_offs.ctypes.data, types, type_offs.ctypes.data,
+            fields, field_offs.ctypes.data,
+            val_blob, val_offs.ctypes.data, n_vals,
+            out.ctypes.data, cap, out_offs.ctypes.data,
+            out_nodes.ctypes.data, status.ctypes.data)
+        if rc == 0:
+            break
+        cap = int(-rc - 2)
+    else:
+        raise RuntimeError("treepack_extract: capacity negotiation failed")
+    buf = out[:out_offs[k]].tobytes()
+    offs, nodes, status = out_offs.tolist(), out_nodes.tolist(), \
+        status.tolist()
+    return [(buf[offs[i]:offs[i + 1]], nodes[i]) if status[i] == WRITTEN
+            else (None, status[i]) for i in range(k)]

@@ -42,6 +42,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..protocol.summary import SummaryTree
 from .device_cache import DevicePackCache, gather_suffix_rows, tuple_sig
 from .family import KernelFamily
 from .interning import Interner
@@ -66,6 +67,7 @@ from .tree_kernel import (
     summary_from_state,
     tree_buckets,
 )
+from .tree_native import value_table, write_headers
 
 __all__ = [
     "TREE_FAMILY",
@@ -181,12 +183,43 @@ def summaries_from_tree_export(meta, arr, stats: Optional[dict] = None,
     pack-time and overflow fallbacks to the oracle (counted per reason).
     ``arr`` is the fetched core tuple in ``TreeState`` field order —
     either a whole chunk's rows or the tier-0 changed-rows gather (the
-    meta is then the sliced sub-meta).  ``counts`` (when given) gets the
-    forest nodes written (``extract_nodes``)."""
+    meta is then the sliced sub-meta).
+
+    A document the pack kept, whose fold did not overflow and which keeps
+    no attribution has its header written by the native writer
+    (``tree_native.write_headers``, one call for all of them); every other
+    document, and one the writer leaves (a chain cycle among them), takes
+    ``summary_from_state``, the same bytes and counts in Python.
+    ``counts`` (when given) gets the forest nodes written
+    (``extract_nodes``) and the documents the writer wrote
+    (``extract_native_docs``)."""
     state_np = dict(zip(TreeState._fields, arr))
-    return [summary_from_state(meta, state_np, d, stats=stats,
-                               counts=counts)
-            for d in range(len(meta["docs"]))]
+    docs, packs = meta["docs"], meta["doc_packs"]
+    overflow = np.asarray(state_np["overflow"]).tolist()
+    rows = [d for d in range(len(docs))
+            if not packs[d].needs_fallback and not overflow[d]
+            and not docs[d].attribution]
+    written = write_headers(meta, state_np, rows) if rows else None
+    out: List = [None] * len(docs)
+    if written is not None:
+        native = nodes = 0
+        for d, (header, emitted) in zip(rows, written):
+            if header is not None:
+                out[d] = SummaryTree().add_blob("header", header)
+                native += 1
+                nodes += emitted
+        if native:
+            if stats is not None:
+                stats["device_docs"] = stats.get("device_docs", 0) + native
+            if counts is not None:
+                for key, n in (("extract_nodes", nodes),
+                               ("extract_native_docs", native)):
+                    counts[key] = counts.get(key, 0) + n
+    for d, tree in enumerate(out):
+        if tree is None:
+            out[d] = summary_from_state(meta, state_np, d, stats=stats,
+                                        counts=counts)
+    return out
 
 
 def _tree_narrow(chunk, state, edits, meta):
@@ -284,6 +317,7 @@ def _extend_tree(entry, chunk: Sequence[TreeDocInput]):
         meta,
         docs=list(chunk),
         doc_packs=doc_packs,
+        value_json=value_table(values),
         n_nodes=np.asarray([len(p.node_ids) for p in doc_packs],
                            np.int32),
         n_cont=np.asarray([len(p.containers) for p in doc_packs],

@@ -131,7 +131,8 @@ def test_stage_schema_matches_reference():
     pipeline.seed_stage(port)
     ref_pipeline.seed_stage(ref)
     assert port == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0),
-                    "extract_tasks": 0, "extract_nodes": 0}
+                    "extract_tasks": 0, "extract_nodes": 0,
+                    "extract_native_docs": 0}
 
 
 def test_all_fallback_batch_still_reports_every_stage():
@@ -149,7 +150,8 @@ def test_all_fallback_batch_still_reports_every_stage():
     ref = {}
     ref_pipeline.seed_stage(ref)
     assert stage == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0),
-                     "extract_tasks": 0, "extract_nodes": 0}
+                     "extract_tasks": 0, "extract_nodes": 0,
+                     "extract_native_docs": 0}
     assert stage["h2d_bytes"] == stage["d2h_bytes"] == 0
     assert summary.digest() == \
         workload.oracle_replay(workload.overflow_doc()).summarize().digest()

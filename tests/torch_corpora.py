@@ -192,8 +192,9 @@ def port_docs(ref_docs):
 def port_stage_keys(ref_stage) -> set:
     """The keys the port's stage dict holds where the reference's holds
     ``ref_stage``'s: the same keys, plus the port's CPU twins of the pack
-    and extract legs and its ``extract_tasks`` and ``extract_nodes``
-    counters wherever the stage schema was seeded."""
+    and extract legs and its ``extract_tasks``, ``extract_nodes`` and
+    ``extract_native_docs`` counters wherever the stage schema was
+    seeded."""
     from fluidframework_tpu_torch.ops.pipeline import (EXTRACT_STAGE_COUNTS,
                                                        HOST_CPU_KEYS,
                                                        STAGE_KEYS)
