@@ -7,8 +7,8 @@ port's libraries from the sources in the checkout, and runs in order:
 
 0. card and build — the card's name and power limit, then the C++ packer
    (g++) and the kernel sources (nvcc: the merge-tree fold, the resident
-   kernels, the tree fold, the map reduction, the matrix fold, and the
-   earlier designs kept beside three of them) built side by side, with
+   kernels, the tree fold, the map reduction and the matrix fold) built
+   side by side, with
    the compiler's register/spill report and the launch each build of the
    merge-tree kernel takes (blocks and documents per SM) at the pinned,
    long-tail and large shapes, and the matrix fold's;
@@ -50,9 +50,8 @@ port's libraries from the sources in the checkout, and runs in order:
    off, and the pinned resident-state tier below its working set (spill,
    then restore); every pass equal to the one batch of the same windows;
    the resident kernels (``csrc/resident.cu``: the in-place splice and the
-   narrow-to-wide migration) held against their plain versions and their
-   earlier design (``csrc/resident_earlier.cu``) on the phase's own
-   resident buffers, and timed beside it;
+   narrow-to-wide migration) held against their plain versions on the
+   phase's own resident buffers, and timed;
 8. SharedTree catch-up at full width (``tree_phase``, after the
    reference's ``run_tree_rebase``): the pinned tree workload (10,240
    documents x 48 edits, five shapes) through ``pipelined_tree_replay``
@@ -63,9 +62,8 @@ port's libraries from the sources in the checkout, and runs in order:
    workload, the exact pass moving nothing up and the digest plane down,
    the splice on the grown pass (one launch a chunk for its three row
    axes), the resident entries equal to the grown chunks' planes, and the
-   splice held against its plain version and its earlier design along the
-   tree's three row axes, and in one launch; both builds of the tree
-   kernel
+   splice held against its plain version along the tree's three row axes,
+   and in one launch; both builds of the tree kernel
    (``csrc/tree_fold.cu``: state out, and with the fused digest) held
    against the plain fold and digest on a pinned chunk, padding rows
    included, and timed;
@@ -81,13 +79,11 @@ port's libraries from the sources in the checkout, and runs in order:
    (``csrc/matrix_fold.cu``) in shared memory, every summary equal to the
    oracle's, the stage split, the transfer bytes and the rate; the
    fixture's routing counts equal to the JAX package's; the fold held
-   against the plain fold and its earlier design (the resolving build of
-   ``csrc/mergetree_fold.cu``), every plane and resolved handle, cold and
+   against the plain fold, every plane and resolved handle, cold and
    warm, on the main batch, the fixture, the crafted resolve cases and 16
    documents of 2,048 ops (S = 4,096, one launch in shared memory through
    the entry too); a violated fact (an obliterate row, a props write, an
-   obliterate stamp) counted and raised; both batches timed beside the
-   earlier design;
+   obliterate stamp) counted and raised; both batches timed;
 11. the catch-up service seam (``service_phase``): one
    ``CatchupService(service, device=...)`` call routing every channel of
    every document into its family on the card, behind the tier-1 result
@@ -170,11 +166,7 @@ port's libraries from the sources in the checkout, and runs in order:
    device spin, median of 7; and the whole call), its plain version once,
    its bound, and the ``kernels`` line (the four fold builds, the two
    resident kernels, the two tree builds, the matrix fold at both shapes
-   and the map kernel; every row but the merge-tree fold's also carries
-   ``earlier_ms``, the time of the kernel's earlier design
-   (``csrc/*_earlier.cu``, or for the matrix fold the resolving build of
-   ``csrc/mergetree_fold.cu``, built with the kernels) on the same inputs
-   in this run, held bit-equal to the kernel; the tree, map and matrix
+   and the map kernel; the tree, map and matrix
    rows their ``launch_shape``, the tree rows the walk steps and the
    longest document's edit rows plus walk steps, the matrix rows the
    bound of the work the cold design must do, ``design_bound_ms``).
@@ -257,12 +249,6 @@ MAP_REPLACES = "fluidframework_tpu/ops/map_kernel.py:140"
 MATRIX_REPLACES = ("fluidframework_tpu/ops/matrix_kernel.py:70 "
                    "(+ _resolve_handle :58)")
 MATRIX_SOURCE = "fluidframework_tpu_torch/csrc/matrix_fold.cu"
-#: the earlier designs of the redesigned kernels, built and timed beside
-#: them in every run (``earlier_ms``); K4's is the resolving build of
-#: KERNEL_SOURCE
-TREE_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/tree_fold_earlier.cu"
-MAP_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/map_lww_earlier.cu"
-RESIDENT_EARLIER_SOURCE = "fluidframework_tpu_torch/csrc/resident_earlier.cu"
 #: the entry points' rates are the median of this many calls (the driven
 #: call and the ones after it)
 ENTRY_CALLS = 3
@@ -455,16 +441,7 @@ def build_all():
             threading.Thread(target=run, args=(
                 "map_lww", lambda: _cuda_build.build("map_lww"))),
             threading.Thread(target=run, args=(
-                "tree_fold_earlier", lambda: _cuda_build.build(
-                    "tree_fold_earlier"))),
-            threading.Thread(target=run, args=(
-                "map_lww_earlier", lambda: _cuda_build.build(
-                    "map_lww_earlier"))),
-            threading.Thread(target=run, args=(
-                "matrix_fold", lambda: _cuda_build.build("matrix_fold"))),
-            threading.Thread(target=run, args=(
-                "resident_earlier", lambda: _cuda_build.build(
-                    "resident_earlier")))]
+                "matrix_fold", lambda: _cuda_build.build("matrix_fold")))]
     for j in jobs:
         j.start()
     for j in jobs:
@@ -790,10 +767,9 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches of each build of the fold kernel, of the matrix fold (and
-    of its earlier design, the fold's resolving build), of each resident
-    kernel, of each build of the tree kernel and of the map kernel since
-    ``reset_counts`` (``ops.launches.launch_counts``)."""
+    """Launches of each build of the fold kernel, of the matrix fold, of
+    each resident kernel, of each build of the tree kernel and of the map
+    kernel since ``reset_counts`` (``ops.launches.launch_counts``)."""
     from fluidframework_tpu_torch.ops.launches import launch_counts
 
     return launch_counts()
@@ -928,11 +904,9 @@ def warm_phase(dev, docs, sample, drive, launches):
                              f"{8 * len(docs)}")
 
     # widen_resident on the resident narrow buffers, against the plain
-    # decode and the earlier design (new tensors: the entries are not
-    # touched)
-    earlier = resident_cuda.earlier_library()
+    # decode (new tensors: the entries are not touched)
     cold_dtype = str(entries[0].ops.seq.dtype)
-    widen_err = widen_earlier_err = 0
+    widen_err = 0
     for e, (_s, host_ops, meta, _t) in zip(entries, cold_packed):
         narrow = e.ops if mt.upload_encoding(e.ops) else tensors_to(
             mt.narrow_ops_for_upload(host_ops, meta), dev)
@@ -941,16 +915,11 @@ def warm_phase(dev, docs, sample, drive, launches):
         got = resident_cuda.widen_resident(narrow, e.base)
         widen_err = max(widen_err, tree_diff(mt._widen_ops(narrow, e.base),
                                              got))
-        widen_earlier_err = max(widen_earlier_err, tree_diff(
-            resident_cuda.widen_resident(narrow, e.base, lib=earlier), got))
-    if widen_err or widen_earlier_err:
-        raise AssertionError(f"widen_resident != plain ({widen_err}) or "
-                             f"its earlier design ({widen_earlier_err})")
+    if widen_err:
+        raise AssertionError(f"widen_resident != plain ({widen_err})")
     w_ops, w_base = entries[0].ops, entries[0].base
     w_ms, w_runs = time_call(
         lambda: resident_cuda.widen_resident(w_ops, w_base))
-    w_earlier_ms, w_earlier_runs = time_call(
-        lambda: resident_cuda.widen_resident(w_ops, w_base, lib=earlier))
     _out, w_plain_ms = timed_once(lambda: mt._widen_ops(w_ops, w_base))
     w_numel = sum(x.numel() for x in w_ops)
     w_bound = bytes_bound(nbytes(tuple(w_ops)) + nbytes(w_base)
@@ -980,7 +949,7 @@ def warm_phase(dev, docs, sample, drive, launches):
         return mt.MTOps(*(torch.where(cut if x.ndim == 2 else cut[..., None],
                                       ~x, x) for x in ops))
 
-    splice_err, splice_earlier_err, splice_case = 0, 0, None
+    splice_err, splice_case = 0, None
     for e, (_s, host_ops, _m, _t), (_s0, cold_ops, _m0, _t0) in zip(
             grown_entries, grown_packed, cold_packed):
         t_old = np.count_nonzero(np.asarray(cold_ops.kind), axis=1).astype(
@@ -995,28 +964,20 @@ def warm_phase(dev, docs, sample, drive, launches):
         unspliced = flipped_from(e.ops, start)
         kernel = mt.MTOps(*(x.clone() for x in unspliced))
         plain = mt.MTOps(*(x.clone() for x in unspliced))
-        before = mt.MTOps(*(x.clone() for x in unspliced))
         resident_cuda.splice_rows(kernel, rows, start, count)
         resident_cuda.splice_rows_reference(plain, rows, start, count)
-        resident_cuda.splice_rows(before, rows, start, count, lib=earlier)
         splice_err = max(splice_err, tree_diff(plain, kernel), tree_diff(
             flipped_from(e.ops, torch.from_numpy(t_new).to(dev)), kernel))
-        splice_earlier_err = max(splice_earlier_err,
-                                 tree_diff(before, kernel))
         if int((t_new - t_old).sum()) and not tree_diff(unspliced, kernel):
             raise AssertionError("splice_rows wrote no row of the suffix")
         if splice_case is None:
-            splice_case = (kernel, plain, before, rows, start, count, L,
+            splice_case = (kernel, plain, rows, start, count, L,
                            int((t_new - t_old).sum()))
-    if splice_err or splice_earlier_err:
-        raise AssertionError(f"splice_rows != plain ({splice_err}) or its "
-                             f"earlier design ({splice_earlier_err})")
-    kernel, plain, before, rows, start, count, L, n_rows = splice_case
+    if splice_err:
+        raise AssertionError(f"splice_rows != plain ({splice_err})")
+    kernel, plain, rows, start, count, L, n_rows = splice_case
     s_ms, s_runs = time_call(
         lambda: resident_cuda.splice_rows(kernel, rows, start, count))
-    s_earlier_ms, s_earlier_runs = time_call(
-        lambda: resident_cuda.splice_rows(before, rows, start, count,
-                                          lib=earlier))
     _out, s_plain_ms = timed_once(
         lambda: resident_cuda.splice_rows_reference(plain, rows, start,
                                                     count))
@@ -1061,38 +1022,29 @@ def warm_phase(dev, docs, sample, drive, launches):
           "splice_rows": {"max_abs_err": splice_err, "shape": [
               kernel.kind.shape[0], kernel.kind.shape[1], L],
               "dtype": str(kernel.seq.dtype), "rows": n_rows, "ms": s_ms,
-              "runs_ms": s_runs, "plain_ms": s_plain_ms, "bound": s_bound,
-              "earlier_ms": s_earlier_ms, "earlier_runs_ms": s_earlier_runs,
-              "earlier_max_abs_err": splice_earlier_err},
+              "runs_ms": s_runs, "plain_ms": s_plain_ms, "bound": s_bound},
           "widen_resident": {"max_abs_err": widen_err,
                              "shape": list(w_ops.kind.shape),
                              "ms": w_ms, "runs_ms": w_runs,
-                             "plain_ms": w_plain_ms, "bound": w_bound,
-                             "earlier_ms": w_earlier_ms,
-                             "earlier_runs_ms": w_earlier_runs,
-                             "earlier_max_abs_err": widen_earlier_err},
+                             "plain_ms": w_plain_ms, "bound": w_bound},
           "tiers": {k: v.stats() for k, v in on.items()}})
     for name in ("splice_rows", "widen_resident"):
         if k6[name] < 1:
             raise AssertionError(f"{name}: no launch on the grown warm run "
                                  f"({k6})")
 
-    def row(name, replaces, err, ms, plain_ms, bound, earlier_ms,
-            earlier_err):
+    def row(name, replaces, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda", "source": RESIDENT_SOURCE,
                 "replaces": replaces, "launches": k6[name],
                 "path": "warm_grown", "max_abs_err": err, "tolerance": 0,
                 "parity": err == 0, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-                "library_ms": None, "earlier_ms": earlier_ms,
-                "earlier_source": RESIDENT_EARLIER_SOURCE,
-                "earlier_max_abs_err": earlier_err}
+                "library_ms": None}
 
     return [row("splice_rows", SPLICE_REPLACES, splice_err, s_ms,
-                s_plain_ms, s_bound, s_earlier_ms, splice_earlier_err),
+                s_plain_ms, s_bound),
             row("widen_resident", WIDEN_REPLACES, widen_err, w_ms,
-                w_plain_ms, w_bound, w_earlier_ms,
-                widen_earlier_err)], passes
+                w_plain_ms, w_bound)], passes
 
 
 def tree_fold_work(state, edits, walk_steps, counts=None):
@@ -1130,13 +1082,13 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
     into copies of the grown planes whose every element from each
     document's old count on is bit-flipped: by the kernel with every axis
     in one launch as the path does it (``splice_row_groups``), by the
-    kernel an axis a launch, by the earlier design an axis a launch, and
-    by the plain version.  All must agree, restore exactly the rows [old,
-    new) and leave the rows from new on flipped, and the chunks spliced
-    must be as many as the ``path_splices`` launches the grown pass made
-    (one a chunk).  Returns, per axis, the largest difference, the cases
-    and rows checked, and one case timed (kernel and earlier design), and
-    the one-launch splice of a chunk's three axes timed."""
+    kernel an axis a launch, and by the plain version.  All must agree,
+    restore exactly the rows [old, new) and leave the rows from new on
+    flipped, and the chunks spliced must be as many as the
+    ``path_splices`` launches the grown pass made (one a chunk).  Returns,
+    per axis, the largest difference, the cases and rows checked, and one
+    case timed, and the one-launch splice of a chunk's three axes
+    timed."""
     import numpy as np
     import torch
 
@@ -1157,12 +1109,11 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
     def copy(planes):
         return type(planes)(*(x.clone() for x in planes))
 
-    earlier = resident_cuda.earlier_library()
     cold_by = {tokens(m): (o, m) for _s, o, m, _t in cold_packed}
     axes = (("edits", tk.TreeEdits), ("nodes", tp._TreeNodePlanes),
             ("containers", tp._TreeContPlanes))
-    out = {axis: {"max_abs_err": 0, "earlier_max_abs_err": 0, "cases": 0,
-                  "rows": 0} for axis, _g in axes}
+    out = {axis: {"max_abs_err": 0, "cases": 0, "rows": 0}
+           for axis, _g in axes}
     mirror_err, timed, chunks, grouped = 0, {}, 0, None
     for host_st, host_ed, meta, _t in grown_packed:
         if tokens(meta) not in cold_by:
@@ -1205,11 +1156,9 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
                         for axis, _f, rows, start, count, _L, _n in cases],
                        [axis for axis, *_rest in cases])
         for axis, full, rows, start, count, L, n_rows in cases:
-            kernel, plain, before = (copy(unspliced[axis]) for _ in range(3))
+            kernel, plain = (copy(unspliced[axis]) for _ in range(2))
             resident_cuda.splice_rows(kernel, rows, start, count)
             resident_cuda.splice_rows_reference(plain, rows, start, count)
-            resident_cuda.splice_rows(before, rows, start, count,
-                                      lib=earlier)
             if not tree_diff(unspliced[axis], kernel):
                 raise AssertionError(f"splice_rows wrote no {axis} row of "
                                      f"the suffix")
@@ -1219,13 +1168,11 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
                                      tree_diff(plain, kernel),
                                      tree_diff(plain, together[axis]),
                                      tree_diff(restored, kernel))
-            rec["earlier_max_abs_err"] = max(rec["earlier_max_abs_err"],
-                                             tree_diff(before, kernel))
             rec["cases"] += 1
             rec["rows"] += n_rows
             rec.setdefault("shape", [*full[0].shape, L])
-            timed.setdefault(axis, (kernel, plain, before, rows, start,
-                                    count, n_rows))
+            timed.setdefault(axis, (kernel, plain, rows, start, count,
+                                    n_rows))
     if mirror_err:
         raise AssertionError(f"resident tree entries differ from the grown "
                              f"chunks' host planes: {mirror_err}")
@@ -1235,16 +1182,12 @@ def tree_splice_check(dev, cold_packed, grown_packed, resident,
     for axis, rec in out.items():
         if not rec["cases"]:
             raise AssertionError(f"no grown tree chunk spliced {axis} rows")
-        if rec["max_abs_err"] or rec["earlier_max_abs_err"]:
-            raise AssertionError(f"splice_rows != plain or its earlier "
-                                 f"design along the tree's {axis} axis: "
-                                 f"{rec}")
-        kernel, plain, before, rows, start, count, n_rows = timed[axis]
+        if rec["max_abs_err"]:
+            raise AssertionError(f"splice_rows != plain along the tree's "
+                                 f"{axis} axis: {rec}")
+        kernel, plain, rows, start, count, n_rows = timed[axis]
         rec["ms"], rec["runs_ms"] = time_call(
             lambda: resident_cuda.splice_rows(kernel, rows, start, count))
-        rec["earlier_ms"], rec["earlier_runs_ms"] = time_call(
-            lambda: resident_cuda.splice_rows(before, rows, start, count,
-                                              lib=earlier))
         _x, rec["plain_ms"] = timed_once(
             lambda: resident_cuda.splice_rows_reference(plain, rows, start,
                                                         count))
@@ -1384,29 +1327,16 @@ def tree_phase(dev, drive, launches):
                    + work["doc_walk_steps"]).max())
     D, N = host_st.next.shape
     C, T = host_st.head.shape[1], host_ed.kind.shape[1]
-    # the earlier design on the same chunk: the same result, bit for bit
-    earlier = tree_fold_cuda.earlier_library()
-    old_final = tree_fold_cuda.fold(st, ed, lib=earlier)
-    old_final2, old_dig = tree_fold_cuda.fold_digest(st, ed, *counts,
-                                                     lib=earlier)
-    torch.cuda.synchronize()
-    err_earlier = max(tree_diff(got_final, old_final),
-                      tree_diff(got_final2, old_final2),
-                      leaves_diff(got_dig, old_dig))
     rows = {}
-    for name, build, fn, plain, before in (
+    for name, build, fn, plain in (
             ("tree_fold", "tree_fold_smem",
              lambda: tree_fold_cuda.fold(st, ed),
-             lambda: tk.tree_fold_reference(st, ed),
-             lambda: tree_fold_cuda.fold(st, ed, lib=earlier)),
+             lambda: tk.tree_fold_reference(st, ed)),
             ("tree_fold_digest", "tree_fold_digest_smem",
              lambda: tree_fold_cuda.fold_digest(st, ed, *counts),
              lambda: tp.tree_doc_digests(tk.tree_fold_reference(st, ed),
-                                         *counts),
-             lambda: tree_fold_cuda.fold_digest(st, ed, *counts,
-                                                lib=earlier))):
+                                         *counts))):
         ms, runs = time_call(fn)
-        earlier_ms, earlier_runs = time_call(before)
         call_ms, _ = time_call(fn, spin=False)
         _out, plain_ms = timed_once(plain)
         moved, ops, real_rows = tree_fold_work(
@@ -1429,10 +1359,7 @@ def tree_phase(dev, drive, launches):
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "bound": bound, "real_edit_rows": real_rows,
             "walk_steps": work["walk_steps"],
-            "longest_doc_rows_plus_walk": longest,
-            "earlier_ms": earlier_ms, "earlier_runs_ms": earlier_runs,
-            "earlier_source": TREE_EARLIER_SOURCE,
-            "earlier_max_abs_err": err_earlier, "library_ms": None,
+            "longest_doc_rows_plus_walk": longest, "library_ms": None,
             "library": "none: no one PyTorch call computes this fold"}
         rows[name]["parity"] = rows[name]["max_abs_err"] == 0
 
@@ -1470,9 +1397,6 @@ def tree_phase(dev, drive, launches):
     if err_fold or err_digest:
         raise AssertionError(f"tree kernel != plain: fold {err_fold}, "
                              f"digest build {err_digest}")
-    if err_earlier:
-        raise AssertionError(f"the tree kernel's earlier design differs "
-                             f"from it: {err_earlier}")
     return [rows["tree_fold"], rows["tree_fold_digest"]], {
         "launches": launches["tree_grown"]["splice_rows"],
         "path": "tree_grown", **splice}
@@ -1584,12 +1508,7 @@ def map_phase(dev, drive, launches, card):
     err = max(parity.values())
 
     fn = lambda: map_lww_cuda.lww(inputs, batch.num_docs)  # noqa: E731
-    earlier = map_lww_cuda.earlier_library()
-    before = lambda: map_lww_cuda.lww(  # noqa: E731
-        inputs, batch.num_docs, lib=earlier)
-    err_earlier = leaves_diff(fn(), before())
     ms, runs = time_call(fn)
-    earlier_ms, earlier_runs = time_call(before)
     call_ms, _ = time_call(fn, spin=False)
     _o, plain_ms = timed_once(
         lambda: mp.map_lww_reference(inputs, batch.num_docs))
@@ -1609,7 +1528,6 @@ def map_phase(dev, drive, launches, card):
           "max_abs_err_by_batch": parity, "kernel_ms": ms,
           "kernel_runs_ms": runs, "call_ms": call_ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "library_runs_ms": library_runs,
-          "earlier_ms": earlier_ms, "earlier_max_abs_err": err_earlier,
           "bound": bound})
     if k7 != 1:
         raise AssertionError(f"replay_map_batch launched the map kernel "
@@ -1622,9 +1540,6 @@ def map_phase(dev, drive, launches, card):
         raise AssertionError("the staged map batch differs from the entry")
     if err:
         raise AssertionError(f"map kernel != plain / library chain: {parity}")
-    if err_earlier:
-        raise AssertionError(f"the map kernel's earlier design differs "
-                             f"from it: {err_earlier}")
     return {"name": "map_lww", "route": "cuda", "source": MAP_SOURCE,
             "replaces": MAP_REPLACES, "launches": k7, "path": "map",
             "timed_shape": [N, G, M], "max_abs_err": err, "tolerance": 0,
@@ -1633,10 +1548,7 @@ def map_phase(dev, drive, launches, card):
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "bound": bound, "library_ms": library_ms,
             "library": "torch scatter_reduce_ amax chain (4 calls and 2 "
-                       "gathers)", "earlier_ms": earlier_ms,
-            "earlier_runs_ms": earlier_runs,
-            "earlier_source": MAP_EARLIER_SOURCE,
-            "earlier_max_abs_err": err_earlier,
+                       "gathers)",
             "launch_shape": map_lww_cuda.launch_shape(N, G, M,
                                                       batch.num_docs),
             "card": card}
@@ -1653,18 +1565,15 @@ def matrix_phase(dev, drive, launches, card):
     the same batch staged by hand and the entry's rate (median of 3
     calls); the committed fixture through the entry (summaries against
     the oracle, routing counts equal to the JAX package's); K4 against the
-    plain ``replay_scan_resolving`` and against its earlier design (the
-    resolving build of ``csrc/mergetree_fold.cu``) on the card, every
-    plane, ``n``, ``overflow`` and resolved handle, cold (no state read)
-    and warm, on the main batch, the fixture, the crafted resolve cases
-    and 16 documents of 2,048 ops (S = 4,096, which the entry folds in
-    shared memory too); a violated fact counted and raised; K4 and its
-    earlier design timed on both batches.  Returns K4's rows of the
-    ``kernels`` line."""
+    plain ``replay_scan_resolving`` on the card, every plane, ``n``,
+    ``overflow`` and resolved handle, cold (no state read) and warm, on
+    the main batch, the fixture, the crafted resolve cases and 16
+    documents of 2,048 ops (S = 4,096, which the entry folds in shared
+    memory too); a violated fact counted and raised; K4 timed on both
+    batches.  Returns K4's rows of the ``kernels`` line."""
     import torch
 
     from fluidframework_tpu_torch.convert import tensors_to
-    from fluidframework_tpu_torch.ops import fold_cuda
     from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
     from fluidframework_tpu_torch.ops import matrix_kernel as mk
     from fluidframework_tpu_torch.testing import config_workloads as cw
@@ -1717,13 +1626,12 @@ def matrix_phase(dev, drive, launches, card):
     parity, plain_ms, inputs = {}, {}, {}
 
     def check(label, packed):
-        """K4 cold (when the batch is) and warm against the plain fold and
-        the earlier design on the same inputs."""
+        """K4 cold (when the batch is) and warm against the plain fold on
+        the same inputs."""
         s_np, o_np, m = packed
         st, op = tensors_to(s_np, dev), tensors_to(o_np, dev)
         (want_f, want_r), plain_ms[label] = timed_once(
             lambda: mk.replay_scan_resolving(st, op))
-        old_f, old_r = fold_cuda.fold_resolving(st, op)
         for warmth in ("cold", "warm") if m["cold"] else ("warm",):
             cold = warmth == "cold"
             got_f, got_r, counted = mf.fold_resolving(
@@ -1732,9 +1640,7 @@ def matrix_phase(dev, drive, launches, card):
             mf.check_facts(counted)
             err_f, first = state_diff(want_f, got_f)
             parity[f"{label}_{warmth}"] = {
-                "plain": max(err_f, leaves_diff(want_r, got_r)),
-                "earlier": max(state_diff(old_f, got_f)[0],
-                               leaves_diff(old_r, got_r))}
+                "plain": max(err_f, leaves_diff(want_r, got_r))}
             if err_f:
                 print(f"K4 vs plain ({label}, {warmth}): first state "
                       f"mismatch {first}", file=sys.stderr)
@@ -1794,10 +1700,8 @@ def matrix_phase(dev, drive, launches, card):
         cold_fn = lambda st=st, op=op, s_=s_: mf.fold_resolving(  # noqa
             None, op, cold=True, S=s_)
         warm_fn = lambda st=st, op=op: mf.fold_resolving(st, op)  # noqa
-        old_fn = lambda st=st, op=op: fold_cuda.fold_resolving(st, op)  # noqa
         k_ms, k_runs = time_call(cold_fn)
         w_ms, w_runs = time_call(warm_fn)
-        e_ms, e_runs = time_call(old_fn)
         k_call_ms, _ = time_call(cold_fn, spin=False)
         # the row's bound formula (state in and out, as for every build)
         # and the work this design must do cold (ops read, 9 planes and
@@ -1807,13 +1711,10 @@ def matrix_phase(dev, drive, launches, card):
                           + d2 * (4 + 1 + 4) + d2 * t_ * 4)
         times[label] = {"shape": [d2, s_, t_, 1], "ms": k_ms,
                         "runs_ms": k_runs, "warm_ms": w_ms,
-                        "warm_runs_ms": w_runs, "earlier_ms": e_ms,
-                        "earlier_runs_ms": e_runs, "call_ms": k_call_ms,
+                        "warm_runs_ms": w_runs, "call_ms": k_call_ms,
                         "plain_ms": plain_ms[label], "bound": bound,
                         "design_bound": design,
                         "launch_shape": mf.occupancy(s_),
-                        "earlier_occupancy": fold_cuda.occupancy(
-                            s_, 1, kernel="fold_resolving"),
                         "resolve_rows": int((op.kind == mk.K_RESOLVE).sum())}
     k4 = {"main": launches["matrix"]["matrix_fold_smem"],
           "large_s": launches["matrix_large"]["matrix_fold_smem"]}
@@ -1861,7 +1762,7 @@ def matrix_phase(dev, drive, launches, card):
         raise AssertionError(f"a violated matrix fact did not raise: {facts}")
     err = max(max(v.values()) for v in parity.values())
     if err:
-        raise AssertionError(f"K4 != plain / earlier design: {parity}")
+        raise AssertionError(f"K4 != plain: {parity}")
     rows = []
     for label, path in (("main", "matrix"), ("large_s", "matrix_large")):
         rec = times[label]
@@ -1886,11 +1787,6 @@ def matrix_phase(dev, drive, launches, card):
             "resolve_rows": rec["resolve_rows"], "library_ms": None,
             "library": "none: no one PyTorch call computes the axis fold "
                        "with resolution",
-            "earlier_ms": rec["earlier_ms"],
-            "earlier_runs_ms": rec["earlier_runs_ms"],
-            "earlier_source": KERNEL_SOURCE + " (resolving builds)",
-            "earlier_occupancy": rec["earlier_occupancy"],
-            "earlier_max_abs_err": max(v["earlier"] for v in by.values()),
             "card": card})
     return rows
 
@@ -4083,10 +3979,10 @@ def main() -> int:
     built = build_all()
     occ = [fold_cuda.occupancy(S, 1, kernel=k)
            for S in (PINNED_S, TAIL_S, LARGE_S)
-           for k in ("fold", "fold_export", "fold_resolving")]
+           for k in ("fold", "fold_export")]
     ptxas = {}
     for source in ("mergetree_fold", "resident", "tree_fold", "map_lww",
-                   "matrix_fold", "resident_earlier"):
+                   "matrix_fold"):
         with open(_cuda_build.library_path(source) + ".log") as f:
             ptxas[source] = [ln.strip() for ln in f if "registers" in ln
                              or "spill" in ln or "smem" in ln]

@@ -99,23 +99,6 @@
 //     them).  At the pinned shape this writes ~15.9 MB in place of the
 //     ~102 MB int32 state and torch's re-read to build the export.
 //
-// The resolving build (template parameter kResolve, state out, both
-// placements: mergetree_fold_resolve, mergetree_fold_resolve_gmem) is the
-// SharedMatrix axis fold, replacing the reference's XLA-traced K4,
-// fluidframework_tpu/ops/matrix_kernel.py:replay_scan_resolving (:70, with
-// _resolve_handle :58, jitted as _replay_matrix_batch :81).  Each
-// document's rows and columns are two merge-tree streams of handle runs;
-// a setCell becomes a K_RESOLVE row in each, a pure read that the fold
-// skips.  Before the kind test, a resolve row takes the view on the
-// current state (resolve_row) and writes the handle at its position to
-// resolved_out [D, T]; every other row writes -1.  The folding rows run
-// the body above unchanged, so the state out is K1's.  The same bound
-// holds with one view over the live slots per resolve row added.
-// Measured by chip_smoke.py on an H100 (700 W): 0.447 ms at [20,480
-// streams, S = 128, T = 64] (10,240 matrix documents of 64 ops, 668,660
-// resolve rows), 4.5x its bytes bound; 6.02 ms in device memory at
-// [32, 4,096, 2,048] (32 warps on the card), 409x its operations bound.
-//
 // One view per row.  Take v (visible length) and cum (its exclusive
 // prefix) once, on the row's state before its splits.  A split changes
 // no slot's visibility (both halves keep the stamps), so:
@@ -164,8 +147,7 @@ enum OpField {
   O_KIND, O_SEQ, O_CLIENT, O_REF, O_MIN, O_A, O_B, O_TSTART, O_TLEN, N_OPF
 };
 enum Kind {
-  K_INSERT = 1, K_REMOVE = 2, K_ANNOTATE = 3, K_OBLITERATE = 4,
-  K_RESOLVE = 5  // the matrix's position read (resolving build only)
+  K_INSERT = 1, K_REMOVE = 2, K_ANNOTATE = 3, K_OBLITERATE = 4
 };
 
 constexpr int kMaxWarps = 8;     // documents per block, at most
@@ -198,8 +180,6 @@ struct FoldArgs {
   int32_t* digest_out;  // [D, 2], or null
   int ex_rows, i16, i8, n_fields, n_props_rows;
   int fields[N_FIXED];  // the exported slot planes, in row order
-  // -- resolving build only --
-  int32_t* resolved_out;  // [D, T] each row's handle, or -1
 };
 
 // int32 words of one document's working area (shared memory, or its slice
@@ -348,34 +328,6 @@ __device__ View take_view(const Doc& doc, int n, int ref, int client, int a,
   }
   if (w.ja < 0) w.ja = n;
   return w;
-}
-
-// The matrix's K_RESOLVE row (the reference's matrix_kernel._resolve_handle):
-// the handle at position a in the row's (ref, client) view on the current
-// state, tstart + a - cum of the one visible slot with cum <= a < cum + v,
-// or -1 when a lands in no visible slot.  The view is take_view's range
-// form with b = a + 1, so it stops only after a chunk holding a slot with
-// cum > a: every slot before the containing one has cum <= a, so a
-// zero-width slot at cum == a that ends a chunk does not stop it short.
-// The containing slot's lane computes the handle from its own registers
-// and a shuffle hands it to the warp.
-__device__ int resolve_row(const Doc& doc, int n, int ref, int client,
-                           int a) {
-  const int lane = doc.lane;
-  const View w = take_view(doc, n, ref, client, a, a + 1, false);
-  for (int c0 = 0; c0 < w.vend; c0 += 32) {
-    const int s = c0 + lane;
-    const bool in = s < w.vend;
-    const int v = in ? doc.vbuf[s] : 0;
-    const int cum = in ? doc.cbuf[s] : 0;
-    const bool hit = in && cum <= a && a < cum + v;
-    const unsigned m = __ballot_sync(kFull, hit);
-    if (m) {
-      const int h = hit ? doc.at(TSTART, s) + a - cum : 0;
-      return __shfl_sync(kFull, h, __ffs(m) - 1);
-    }
-  }
-  return -1;
 }
 
 // Obliterate-on-arrival for an insert: the new segment dies iff its
@@ -743,14 +695,9 @@ __device__ void export_doc(const Doc& doc, const FoldArgs& a, int d, int n,
 // kGmem: the working area is the document's slice of args.scratch (else
 // shared memory); kExport: the fold+export entry (else state out).  Only
 // the state-out fold in shared memory moves rows with bulk copies.
-// kResolve (state out only): the matrix's resolving build, which also
-// writes each row's handle to args.resolved_out (-1 for every row that is
-// not a K_RESOLVE row, padding included, and for a resolve that lands in
-// no visible slot); the folding rows are K1's, unchanged.
-template <bool kGmem, bool kExport, bool kResolve>
+template <bool kGmem, bool kExport>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 mergetree_fold_kernel(FoldArgs args) {
-  static_assert(!(kExport && kResolve), "no fold+export resolving build");
   extern __shared__ __align__(16) int32_t smem[];
   constexpr bool kBulk = !kGmem && !kExport;
   const int S = args.S, T = args.T, K = args.K;
@@ -823,25 +770,9 @@ mergetree_fold_kernel(FoldArgs args) {
       load_ops_plain(doc, pvb, args, d, t0, tl);
       __syncwarp();  // the tile (and the state) is seen by every lane
     }
-    if constexpr (kResolve) {
-      // Every row of the tile reads -1 unless it resolves below; lane
-      // ti & 31 writes row ti both times, so its writes stay in order.
-      for (int i = lane; i < tl; i += 32) args.resolved_out[dT + t0 + i] = -1;
-    }
     for (int ti = 0; ti < tl; ++ti) {
       Row r;
       r.kind = doc.opb[O_KIND * kOpTile + ti];
-      if constexpr (kResolve) {
-        if (r.kind == K_RESOLVE) {  // a read: resolve on the current state
-          const int h = resolve_row(doc, min(n, S),
-                                    doc.opb[O_REF * kOpTile + ti],
-                                    doc.opb[O_CLIENT * kOpTile + ti],
-                                    doc.opb[O_A * kOpTile + ti]);
-          if (lane == (ti & 31)) args.resolved_out[dT + t0 + ti] = h;
-          __syncwarp();  // v / cum are read before the next row's view
-          continue;
-        }
-      }
       if (r.kind < K_INSERT || r.kind > K_OBLITERATE) continue;  // inert
       r.seq = doc.opb[O_SEQ * kOpTile + ti];
       r.client = doc.opb[O_CLIENT * kOpTile + ti];
@@ -922,22 +853,17 @@ mergetree_fold_kernel(FoldArgs args) {
   }
 }
 
-// The six builds of the kernel, by variant = kGmem | kExport << 1 |
-// kResolve << 2 (6 and 7, fold+export with resolution, are not built).
+// The four builds of the kernel, by variant = kGmem | kExport << 1.
 const void* kernel_of(int variant) {
   switch (variant) {
     case 0: return reinterpret_cast<const void*>(
-        &mergetree_fold_kernel<false, false, false>);
+        &mergetree_fold_kernel<false, false>);
     case 1: return reinterpret_cast<const void*>(
-        &mergetree_fold_kernel<true, false, false>);
+        &mergetree_fold_kernel<true, false>);
     case 2: return reinterpret_cast<const void*>(
-        &mergetree_fold_kernel<false, true, false>);
-    case 3: return reinterpret_cast<const void*>(
-        &mergetree_fold_kernel<true, true, false>);
-    case 4: return reinterpret_cast<const void*>(
-        &mergetree_fold_kernel<false, false, true>);
+        &mergetree_fold_kernel<false, true>);
     default: return reinterpret_cast<const void*>(
-        &mergetree_fold_kernel<true, false, true>);
+        &mergetree_fold_kernel<true, true>);
   }
 }
 
@@ -1022,16 +948,15 @@ cudaError_t launch_shape(int variant, int S, int K, LaunchShape* out) {
   return e;
 }
 
-template <bool kGmem, bool kExport, bool kResolve = false>
+template <bool kGmem, bool kExport>
 int launch(const FoldArgs& args, void* stream) {
   if (args.D == 0) return 0;
   LaunchShape shape;
-  const cudaError_t e = launch_shape(
-      (kGmem ? 1 : 0) | (kExport ? 2 : 0) | (kResolve ? 4 : 0), args.S,
-      args.K, &shape);
+  const cudaError_t e = launch_shape((kGmem ? 1 : 0) | (kExport ? 2 : 0),
+                                     args.S, args.K, &shape);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (args.D + shape.warps - 1) / shape.warps;
-  mergetree_fold_kernel<kGmem, kExport, kResolve>
+  mergetree_fold_kernel<kGmem, kExport>
       <<<blocks, shape.warps * 32, shape.bytes, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
@@ -1073,11 +998,10 @@ long long mergetree_fold_smem_bytes(int S, int K) {
 // The launch a build of the kernel takes at (S, K) on the current device:
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor for it, with the documents
 // (warps) per block in *docs_per_block.  variant = device memory (1) |
-// fold+export (2) | resolving (4), 0-5.  Returns blocks per SM, or minus
-// the CUDA error.
+// fold+export (2), 0-3.  Returns blocks per SM, or minus the CUDA error.
 int mergetree_fold_occupancy_of(int variant, int S, int K,
                                 int* docs_per_block) {
-  if (variant < 0 || variant > 5) return -(int)cudaErrorInvalidValue;
+  if (variant < 0 || variant > 3) return -(int)cudaErrorInvalidValue;
   LaunchShape shape;
   const cudaError_t e = launch_shape(variant, S, K, &shape);
   if (e != cudaSuccess) return -(int)e;
@@ -1099,25 +1023,6 @@ int mergetree_fold_gmem(void* const* ptrs, int D, int S, int T, int K,
   FoldArgs args = state_out_args(ptrs, D, S, T, K);
   args.scratch = scratch;
   return launch<true, false>(args, stream);
-}
-
-// State out with resolution (the matrix's axis fold), shared memory:
-// resolved is [D, T] int32.
-int mergetree_fold_resolve(void* const* ptrs, int D, int S, int T, int K,
-                           int32_t* resolved, void* stream) {
-  FoldArgs args = state_out_args(ptrs, D, S, T, K);
-  args.resolved_out = resolved;
-  return launch<false, false, true>(args, stream);
-}
-
-// State out with resolution, device memory.
-int mergetree_fold_resolve_gmem(void* const* ptrs, int D, int S, int T,
-                                int K, int32_t* resolved, int32_t* scratch,
-                                void* stream) {
-  FoldArgs args = state_out_args(ptrs, D, S, T, K);
-  args.resolved_out = resolved;
-  args.scratch = scratch;
-  return launch<true, false, true>(args, stream);
 }
 
 // Fold + export.  ptrs: 9 op fields, pvals, 12 state planes, props, n,

@@ -9,7 +9,7 @@
 // reference's `_widen_ops` / `_widen_state` under `jit`).  The wrapper
 // is ops/resident_cuda.py; the plain PyTorch versions beside it are the
 // CPU path and the card's yardstick.  The earlier design (one thread an
-// element) is kept as csrc/resident_earlier.cu.
+// element) is in the repository's history, at commit 889c28c.
 //
 // resident_splice_rows / resident_splice_groups: for every plane p of one
 // or more row groups g (a namedtuple each, with its own start, count, T

@@ -751,7 +751,7 @@ extern "C" {
 // gmem: fold in the output planes (device memory) instead of shared
 // memory; docs_per_block: warps a block, which this source takes only as
 // 1 (the argument keeps the entry's signature, so one binding drives this
-// source and csrc/tree_fold_earlier.cu).
+// source and the earlier design at commit 889c28c).
 int tree_fold(void* const* ptrs, int D, int N, int C, int T, int gmem,
               int docs_per_block, void* stream) {
   Args a;

@@ -1,17 +1,11 @@
 """The merge-tree fold kernel for Hopper and its wrappers.
 
-``fold(state, ops)`` folds every document's op tail into its state,
+``fold(state, ops)`` folds every document's op tail into its state, and
 ``fold_export(state, ops, doc_base, layout, digest)`` does the same and
-writes the transfer buffer (and the state digest) instead of the state,
-and ``fold_resolving(state, ops)`` is the SharedMatrix axis fold: the
-state out plus each ``K_RESOLVE`` row's handle.  That resolving build is
-the earlier design of K4, kept as the yardstick ``chip_smoke.py`` and
-``tools/torch_kernel_turns.py`` time; no entry point launches it
-(``replay_matrix_batch`` takes ``ops/matrix_fold_cuda.py``):
+writes the transfer buffer (and the state digest) instead of the state:
 
 - on CPU tensors they are the plain versions,
-  ``mergetree_kernel.fold_reference``, ``export_reference`` and
-  ``matrix_kernel.replay_scan_resolving``;
+  ``mergetree_kernel.fold_reference`` and ``export_reference``;
 - on CUDA tensors they launch the hand-written kernel in
   ``csrc/mergetree_fold.cu`` on the current stream, or raise.  There is
   no fall back to a plain version, to the CPU or to a wider layout on
@@ -21,9 +15,7 @@ The kernel replaces the TPU kernel ``fluidframework_tpu/ops/pallas_fold.py``
 (``_fold_kernel``, entry ``replay_vmapped_pallas``) and, in its
 fold+export build, the reference's XLA prologue and epilogue around it
 (``_cold_start``, ``_widen_ops``, ``_widen_state``, ``_export_state``,
-``_doc_digests``) and, in its resolving build, the reference's
-XLA-traced matrix axis fold K4 (``fluidframework_tpu/ops/matrix_kernel.py``,
-``replay_scan_resolving``).  One warp folds one document.  ``placement(S, K)``
+``_doc_digests``).  One warp folds one document.  ``placement(S, K)``
 picks where its working set lives: in shared memory when it fits a block
 (several documents to a block, rows moved by bulk asynchronous copies in
 the state-out build), else in the document's slice of a device-memory
@@ -32,8 +24,7 @@ copies move whole rows, so ``_check`` refuses shapes whose int32 rows are
 not 16-byte multiples (the packer never makes one).  The source's header
 note says what bounds it on the card and what the design does about that.
 
-``fold.launches`` / ``fold_export.launches`` /
-``fold_resolving.launches`` count each entry's launches
+``fold.launches`` / ``fold_export.launches`` count each entry's launches
 (and nothing else), and ``.placements`` splits them by placement, so a run
 can show which builds the main path went through; ``occupancy(S, K)``
 reports the launch a build takes.
@@ -67,8 +58,7 @@ _N_PTRS = len(OP_FIELDS) + 1 + 2 * (len(EXPORT_SLOT_FIELDS) + 3)
 _N_EXPORT_PTRS = len(OP_FIELDS) + 1 + len(EXPORT_SLOT_FIELDS) + 3 + 5
 #: the kernel builds, as ``mergetree_fold_occupancy_of`` numbers them
 _VARIANTS = {("fold", "smem"): 0, ("fold", "gmem"): 1,
-             ("fold_export", "smem"): 2, ("fold_export", "gmem"): 3,
-             ("fold_resolving", "smem"): 4, ("fold_resolving", "gmem"): 5}
+             ("fold_export", "smem"): 2, ("fold_export", "gmem"): 3}
 _lib = None
 
 
@@ -103,15 +93,6 @@ def bind_all(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mergetree_fold_occupancy_of.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)]
-    lib.mergetree_fold_resolve.restype = ctypes.c_int
-    lib.mergetree_fold_resolve.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    lib.mergetree_fold_resolve_gmem.restype = ctypes.c_int
-    lib.mergetree_fold_resolve_gmem.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
     return lib
 
 
@@ -142,8 +123,7 @@ def occupancy(S: int, K: int, lib: ctypes.CDLL = None,
     card, in the placement ``placement(S, K)`` picks: documents (warps)
     per block, and blocks and documents per SM as
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports them.
-    ``kernel`` is ``"fold"`` (state out), ``"fold_export"`` or
-    ``"fold_resolving"``.  ``lib`` is
+    ``kernel`` is ``"fold"`` (state out) or ``"fold_export"``.  ``lib`` is
     the kernel's library unless another build of this source is given
     (``bind_all`` it first)."""
     lib = lib or _library()
@@ -229,24 +209,9 @@ def fold(state: MTState, ops: MTOps, lib: ctypes.CDLL = None) -> MTState:
         return fold_reference(state, ops)
     if device.type != "cuda":
         raise ValueError(f"fold runs on cpu or cuda tensors, not {device}")
-    out, _ = _state_out(fold, state, ops, device, lib)
-    return out
-
-
-fold.launches = 0
-fold.placements = {"smem": 0, "gmem": 0}
-
-
-def _state_out(entry, state: MTState, ops: MTOps, device: torch.device,
-               lib: ctypes.CDLL = None):
-    """Launch a state-out build (``entry`` is ``fold`` or
-    ``fold_resolving``) in the placement ``placement`` picks, and count
-    it on ``entry`` after its return code is checked; returns ``(out,
-    resolved)`` (``resolved`` None for ``fold``)."""
     D, S, T, K = _check(state, ops, device)
     lib = lib or _library()
     where = placement(S, K, lib)
-    resolving = entry is fold_resolving
     out = MTState(
         **{f: torch.empty((D, S), dtype=torch.int32, device=device)
            for f in EXPORT_SLOT_FIELDS},
@@ -254,8 +219,6 @@ def _state_out(entry, state: MTState, ops: MTOps, device: torch.device,
         n=torch.empty((D,), dtype=torch.int32, device=device),
         overflow=torch.empty((D,), dtype=torch.bool, device=device),
     )
-    resolved = torch.empty((D, T), dtype=torch.int32, device=device) \
-        if resolving else None
     tensors = [getattr(ops, f) for f in OP_FIELDS] + [ops.pvals]
     for st in (state, out):
         tensors += [getattr(st, f) for f in EXPORT_SLOT_FIELDS]
@@ -263,7 +226,7 @@ def _state_out(entry, state: MTState, ops: MTOps, device: torch.device,
     assert len(tensors) == _N_PTRS
     ptrs = (ctypes.c_void_p * _N_PTRS)(*[t.data_ptr() for t in tensors])
     if D == 0:
-        return out, resolved
+        return out
     with torch.cuda.device(device):
         stream = _launch_stream(device)
         scratch = None if where == "smem" else torch.empty(
@@ -271,50 +234,23 @@ def _state_out(entry, state: MTState, ops: MTOps, device: torch.device,
             device=device)
         extra = [] if scratch is None else [
             ctypes.c_void_p(scratch.data_ptr())]
-        if resolving:
-            c_entry = lib.mergetree_fold_resolve if where == "smem" \
-                else lib.mergetree_fold_resolve_gmem
-            rc = c_entry(ptrs, D, S, T, K,
-                         ctypes.c_void_p(resolved.data_ptr()), *extra,
-                         stream)
-        else:
-            c_entry = lib.mergetree_fold if where == "smem" \
-                else lib.mergetree_fold_gmem
-            rc = c_entry(ptrs, D, S, T, K, *extra, stream)
+        c_entry = lib.mergetree_fold if where == "smem" \
+            else lib.mergetree_fold_gmem
+        rc = c_entry(ptrs, D, S, T, K, *extra, stream)
     if rc != 0:
-        raise RuntimeError(f"mergetree_fold launch failed ({entry.__name__}, "
-                           f"{where}): CUDA error {rc}")
-    entry.launches += 1
-    entry.placements[where] += 1
-    return out, resolved
+        raise RuntimeError(f"mergetree_fold launch failed ({where}): CUDA "
+                           f"error {rc}")
+    fold.launches += 1
+    fold.placements[where] += 1
+    return out
 
 
-def fold_resolving(state: MTState, ops: MTOps, lib: ctypes.CDLL = None):
-    """The SharedMatrix axis fold: ``ops`` folded into ``state`` as
-    ``fold`` does, plus each row's resolved handle, ``(MTState, resolved
-    [D, T] int32)``.  A ``K_RESOLVE`` row (``matrix_kernel.K_RESOLVE``)
-    reads the handle at its position in its view on the state before it;
-    every other row gives -1.  CPU tensors take the plain
-    ``matrix_kernel.replay_scan_resolving``; CUDA tensors the kernel's
-    resolving build, in shared or device memory as ``placement`` says."""
-    device = state.tstart.device
-    if device.type == "cpu":
-        from .matrix_kernel import replay_scan_resolving
-
-        return replay_scan_resolving(state, ops)
-    if device.type != "cuda":
-        raise ValueError(
-            f"fold_resolving runs on cpu or cuda tensors, not {device}")
-    return _state_out(fold_resolving, state, ops, device, lib)
-
-
-fold_resolving.launches = 0
-fold_resolving.placements = {"smem": 0, "gmem": 0}
+fold.launches = 0
+fold.placements = {"smem": 0, "gmem": 0}
 
 
 def fold_export(state, ops: MTOps, doc_base: torch.Tensor, layout,
-                digest: bool = False, S: int = None,
-                lib: ctypes.CDLL = None):
+                digest: bool = False, S: int = None):
     """Fold a chunk and return its export leaves, as the reference's
     ``replay_export`` does: the transfer buffer (``[D, rows, S]``, int16
     when ``i16`` else int32), ``(buffer, misc [D, 4])`` for i8 layouts,
@@ -369,7 +305,7 @@ def fold_export(state, ops: MTOps, doc_base: torch.Tensor, layout,
         ex = ex + (dig,) if isinstance(ex, tuple) else (ex, dig)
     if D == 0:
         return ex
-    lib = lib or _library()
+    lib = _library()
     where = placement(S, K, lib)
     scratch = torch.empty((D, _doc_bytes(S, K, lib) // 4), dtype=torch.int32,
                           device=device) if where == "gmem" else None
@@ -404,6 +340,6 @@ fold_export.placements = {"smem": 0, "gmem": 0}
 
 def reset_launches() -> None:
     """Set every launch count to 0 (before the run they should count)."""
-    for entry in (fold, fold_export, fold_resolving):
+    for entry in (fold, fold_export):
         entry.launches = 0
         entry.placements = {"smem": 0, "gmem": 0}

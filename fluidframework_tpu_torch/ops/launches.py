@@ -27,16 +27,15 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Launches since the last reset: each build of the merge-tree fold by
-    placement (``fold_smem``, ``fold_export_gmem``, ``fold_resolving_*``),
-    the matrix fold by placement (``matrix_fold_*``), ``map_lww``, the
-    resident ``splice_rows`` and ``widen_resident``, and each build of the
-    tree fold by placement (``tree_fold_*``, ``tree_fold_digest_*``)."""
+    placement (``fold_smem``, ``fold_export_gmem``, ...), the matrix fold
+    by placement (``matrix_fold_*``), ``map_lww``, the resident
+    ``splice_rows`` and ``widen_resident``, and each build of the tree
+    fold by placement (``tree_fold_*``, ``tree_fold_digest_*``)."""
     from . import (fold_cuda, map_lww_cuda, matrix_fold_cuda, resident_cuda,
                    tree_fold_cuda)
 
     counts = {f"{entry.__name__}_{where}": n
-              for entry in (fold_cuda.fold, fold_cuda.fold_export,
-                            fold_cuda.fold_resolving)
+              for entry in (fold_cuda.fold, fold_cuda.fold_export)
               for where, n in entry.placements.items()}
     counts.update({f"matrix_fold_{where}": n for where, n in
                    matrix_fold_cuda.fold_resolving.placements.items()})

@@ -16,11 +16,9 @@ The kernel replaces the reference's XLA-traced device code K7,
 memset and two launches behind one C entry (a pass over the rows, each
 warp grouping its rows by key and issuing three atomics a group, then
 one thread a key).  The source's header note says what bounds it on the
-card and what the design does about that.  ``earlier_library()`` loads
-the earlier design (``csrc/map_lww_earlier.cu``), the yardstick the
-kernel is timed against; no entry point launches it.
-``lww.launches`` counts the calls that launched it (a batch of no keys
-launches nothing and counts nothing); ``reset_launches()`` zeroes it.
+card and what the design does about that.  ``lww.launches`` counts the
+calls that launched it (a batch of no keys launches nothing and counts
+nothing); ``reset_launches()`` zeroes it.
 """
 
 from __future__ import annotations
@@ -35,7 +33,6 @@ from .map_kernel import LWWInputs, map_lww_reference
 #: ``kMaxBlocks``)
 THREADS, MAX_BLOCKS = 256, 132 * 16
 _lib = None
-_earlier = None
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -55,19 +52,6 @@ def _library() -> ctypes.CDLL:
 
         _lib = bind(load("map_lww"))
     return _lib
-
-
-def earlier_library() -> ctypes.CDLL:
-    """The earlier design of the kernel, built from
-    ``csrc/map_lww_earlier.cu`` at first use (the same C entry): the
-    yardstick for measurements, never an entry point's.  Give it to
-    ``lww`` as ``lib``."""
-    global _earlier
-    if _earlier is None:
-        from ._cuda_build import load
-
-        _earlier = bind(load("map_lww_earlier"))
-    return _earlier
 
 
 def _check(inputs: LWWInputs, device: torch.device):
@@ -107,9 +91,8 @@ def launch_shape(N: int, G: int, M: int, num_docs: int) -> dict:
 def lww(inputs: LWWInputs, num_docs: int, *, lib=None):
     """The LWW reduction: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (same outputs, bit for bit).  ``lib`` (another
-    build with the same C entry, ``bind`` it first, or
-    ``earlier_library()``) overrides the kernel's library, for
-    measurements and tests."""
+    build with the same C entry, ``bind`` it first) overrides the kernel's
+    library, for measurements and tests."""
     device = inputs.key_gid.device
     if device.type == "cpu":
         return map_lww_reference(inputs, num_docs)

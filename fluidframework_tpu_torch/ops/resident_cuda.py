@@ -22,11 +22,7 @@ The kernels replace the reference's XLA-traced device code K6,
 stays in ``mergetree_kernel.upload_encoding``: ``widen_resident`` asks it
 first, raises on an encoding it refuses, and returns a wide tree as it
 is.  ``splice_rows.launches`` / ``widen_resident.launches`` count the
-launches (and nothing else); ``reset_launches()`` zeroes them.  The
-earlier design of the kernels, ``csrc/resident_earlier.cu`` (same C
-entries but the grouped splice; ``earlier_library()``), is the yardstick
-``chip_smoke.py`` and ``tools/torch_kernel_turns.py`` time; no entry point
-launches it.
+launches (and nothing else); ``reset_launches()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -46,8 +42,7 @@ from .mergetree_kernel import (
 )
 
 #: planes and row groups one splice launch takes (the kernel's descriptor
-#: table; the earlier design, ``csrc/resident_earlier.cu``, takes one group
-#: of 16)
+#: table)
 MAX_PLANES, MAX_GROUPS = 32, 4
 #: bytes an element for the dtypes the kernels move
 _ESIZE = {torch.int8: 1, torch.bool: 1, torch.int16: 2, torch.int32: 4}
@@ -58,10 +53,8 @@ _lib = None
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the signatures of ``resident_splice_rows``,
-    ``resident_widen`` and, where the build has it,
-    ``resident_splice_groups`` on a loaded build of ``csrc/resident.cu``
-    (or of its earlier design, ``csrc/resident_earlier.cu``); returns
-    ``lib``."""
+    ``resident_splice_groups`` and ``resident_widen`` on a loaded build of
+    ``csrc/resident.cu``; returns ``lib``."""
     lib.resident_splice_rows.restype = ctypes.c_int
     lib.resident_splice_rows.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
@@ -75,15 +68,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    if hasattr(lib, "resident_splice_groups"):
-        lib.resident_splice_groups.restype = ctypes.c_int
-        lib.resident_splice_groups.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.resident_splice_groups.restype = ctypes.c_int
+    lib.resident_splice_groups.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -94,14 +86,6 @@ def _library() -> ctypes.CDLL:
 
         _lib = bind(load("resident"))
     return _lib
-
-
-def earlier_library() -> ctypes.CDLL:
-    """The earlier design of these kernels (``csrc/resident_earlier.cu``,
-    same C entries), built at first use; no entry point launches it."""
-    from ._cuda_build import load
-
-    return bind(load("resident_earlier"))
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:

@@ -19,10 +19,9 @@ folds one document, one document a block; ``placement(N, C)`` says where
 its forest lives: in shared memory when its working set fits a block
 (``smem_layout``: with the walk table and a 64-row edit tile, or in the
 lean layout without the table and with a smaller tile), else in its slice
-of the output planes in device memory.  Neither raises for size.  The source's header note says what bounds it on the card and
-what the design does about that.  ``earlier_library()`` loads the earlier
-design (``csrc/tree_fold_earlier.cu``), the yardstick the kernel is timed
-against; no entry point launches it.
+of the output planes in device memory.  Neither raises for size.  The
+source's header note says what bounds it on the card and what the design
+does about that.
 
 ``fold.launches`` / ``fold_digest.launches`` count each entry's launches
 (and nothing else), ``.placements`` splits them by placement, and
@@ -46,7 +45,6 @@ EDIT_TILE = 64
 #: n_nodes, n_cont, digest
 _N_PTRS = 2 * len(TreeState._fields) + len(TreeEdits._fields) + 3
 _lib = None
-_earlier = None
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -68,37 +66,6 @@ def _library() -> ctypes.CDLL:
 
         _lib = bind(load("tree_fold"))
     return _lib
-
-
-class EarlierLaunch:
-    """A build of the earlier design (``csrc/tree_fold_earlier.cu``, or
-    another source with its launch rule) behind the C entry ``fold``
-    calls: it launches the way its own wrapper did, the forest alone in
-    shared memory when it fits a block and as many forests a block as fit,
-    at most 4, in place of the placement and the one document a block
-    ``fold`` passes.  Give it to ``fold`` / ``fold_digest`` as ``lib``."""
-
-    def __init__(self, lib: ctypes.CDLL):
-        self.lib = lib
-
-    def tree_fold(self, ptrs, D, N, C, T, gmem, docs_per_block, stream):
-        forest = 4 * (7 * N + 2 * C)
-        fits = forest <= SMEM_LIMIT
-        per_block = max(1, min(4, SMEM_LIMIT // forest)) if fits else 4
-        return self.lib.tree_fold(ptrs, D, N, C, T, int(not fits),
-                                  per_block, stream)
-
-
-def earlier_library() -> EarlierLaunch:
-    """The earlier design of the kernel, built from
-    ``csrc/tree_fold_earlier.cu`` at first use and launched by its own
-    rule: the yardstick for measurements, never an entry point's."""
-    global _earlier
-    if _earlier is None:
-        from ._cuda_build import load
-
-        _earlier = EarlierLaunch(bind(load("tree_fold_earlier")))
-    return _earlier
 
 
 def doc_bytes(N: int, C: int, where: str = "smem", tile: int = EDIT_TILE,
@@ -227,8 +194,7 @@ def fold(state: TreeState, edits: TreeEdits, *, lib=None) -> TreeState:
     """The final forest of every document (new tensors; the inputs are
     not written): the plain fold for CPU tensors, the kernel for CUDA
     tensors.  ``lib`` (another build with the same C entry, ``bind`` it
-    first, or ``earlier_library()``) overrides the kernel's library, for
-    measurements and tests."""
+    first) overrides the kernel's library, for measurements and tests."""
     if not _on(state.next.device, "fold"):
         return tree_fold_reference(state, edits)
     out, _dig = _launch(state, edits, None, fold, lib)

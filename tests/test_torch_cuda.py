@@ -1,8 +1,7 @@
 """The hand-written CUDA kernels (the fold's state-out builds in shared
-and in device memory, its fold+export and resolving builds, the resident,
-tree, map and matrix kernels, and the earlier designs kept beside them)
-against the plain PyTorch versions, and the entry points against the
-oracles, on the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
+and in device memory, its fold+export builds, the resident, tree, map and
+matrix kernels) against the plain PyTorch versions, and the entry points
+against the oracles, on the card.  These tests need an NVIDIA GPU (sm_90a) and ``nvcc``; without
 a CUDA device they skip.  They import neither JAX nor the JAX package, so
 on a machine without JAX they run with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -442,23 +441,6 @@ def test_tree_kernel_matches_plain_on_every_copy_path(cuda, build):
 
 
 @pytest.mark.parametrize("build", ["fold", "fold_digest"])
-def test_tree_earlier_design_matches_the_kernel(cuda, build):
-    """The yardstick the kernel is timed against (its earlier design, at
-    its own launch) gives the kernel's result on the same corpora, so a
-    time of one is a time of the same work as the other."""
-    for name, (st_np, ed_np) in _tree_block_corpora().items():
-        _fold_and_compare(cuda, build, st_np, ed_np,
-                          lib=_earlier("tree_fold_cuda"))
-
-
-def _earlier(module):
-    import importlib
-
-    return importlib.import_module(
-        f"fluidframework_tpu_torch.ops.{module}").earlier_library()
-
-
-@pytest.mark.parametrize("build", ["fold", "fold_digest"])
 def test_tree_kernel_folds_at_the_shared_memory_edge(cuda, build):
     """Forests at each edge of the placements, 3 documents each, against
     the plain fold: the largest full layout (N = 6,268, C = 64), the lean
@@ -655,8 +637,7 @@ def test_tree_warm_sequence_on_card_matches_cpu(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The SharedMap reduction (csrc/map_lww.cu) and the matrix axis fold with
-# resolution (the resolving build of csrc/mergetree_fold.cu)
+# The SharedMap reduction (csrc/map_lww.cu) and the matrix entry point
 # ---------------------------------------------------------------------------
 
 
@@ -717,22 +698,6 @@ def test_map_lww_kernel_matches_plain_on_adversarial_inputs(cuda, seed):
     assert torch.equal(want_val, got_val)
 
 
-@pytest.mark.parametrize("corpus", sorted(_map_corpora()))
-def test_map_earlier_design_matches_the_kernel(cuda, corpus):
-    """The yardstick the kernel is timed against (its earlier design)
-    gives the kernel's result on every key of the packed corpora."""
-    from fluidframework_tpu_torch.ops import map_kernel as mp
-    from fluidframework_tpu_torch.ops import map_lww_cuda
-
-    batch = mp.pack_map_batch(_map_corpora()[corpus]())
-    inputs = mp.lww_inputs(batch, cuda)
-    want = map_lww_cuda.lww(inputs, batch.num_docs)
-    got = map_lww_cuda.lww(inputs, batch.num_docs,
-                           lib=_earlier("map_lww_cuda"))
-    for w, g in zip(want, got):
-        assert torch.equal(w, g)
-
-
 def test_map_lww_kernel_counts_no_launch_for_no_keys(cuda):
     from fluidframework_tpu_torch.ops import map_kernel as mp
     from fluidframework_tpu_torch.ops import map_lww_cuda
@@ -762,58 +727,6 @@ def test_map_entry_point_on_card_matches_oracle(cuda):
         [mp.oracle_map_summary(d).digest() for d in docs]
 
 
-@pytest.mark.parametrize("where", ["smem", "gmem"])
-@pytest.mark.parametrize("corpus", sorted(_matrix_corpora()))
-def test_resolving_kernel_matches_plain(cuda, monkeypatch, corpus, where):
-    """Both placements of the resolving build against the plain
-    ``replay_scan_resolving``: every plane, ``n``, ``overflow`` and every
-    resolved handle (padding rows included); device memory forced by
-    patching ``placement``."""
-    from fluidframework_tpu_torch.ops import matrix_kernel as mk
-
-    docs = [d for d in _matrix_corpora()[corpus]()
-            if not mk.known_matrix_fallback(d)]
-    st_np, ops_np, _meta = mk.pack_matrix_batch(docs)
-    state, ops = tensors_to(st_np, cuda), tensors_to(ops_np, cuda)
-    monkeypatch.setattr(fold_cuda, "placement", lambda S, K, lib=None: where)
-    before = dict(fold_cuda.fold_resolving.placements)
-    got, got_resolved = fold_cuda.fold_resolving(state, ops)
-    torch.cuda.synchronize()
-    assert fold_cuda.fold_resolving.placements == dict(
-        before, **{where: before[where] + 1})
-    want, want_resolved = mk.replay_scan_resolving(state, ops)
-    _assert_all_equal(want, got)
-    assert torch.equal(want_resolved, got_resolved)
-
-
-def test_resolving_kernel_skips_a_zero_width_slot_that_ends_a_chunk(cuda):
-    from fluidframework_tpu_torch.ops import matrix_kernel as mk
-    from fluidframework_tpu_torch.testing import config_workloads as cw
-
-    st_np, ops_np, _m = mk.pack_matrix_batch(
-        [cw.crafted_matrix_doc("zero-width-chunk-end")])
-    _final, resolved = fold_cuda.fold_resolving(tensors_to(st_np, cuda),
-                                                tensors_to(ops_np, cuda))
-    rows = resolved[0][torch.from_numpy(ops_np.kind[0]).to(cuda)
-                       == mk.K_RESOLVE]
-    assert rows.tolist() == [32, 31, -1]
-
-
-def test_resolving_kernel_counts_no_launch_for_an_empty_batch(cuda):
-    from fluidframework_tpu_torch.ops import matrix_kernel as mk
-    from fluidframework_tpu_torch.testing import config_workloads as cw
-
-    st_np, ops_np, _m = mk.pack_matrix_batch([cw.gen_matrix_doc(0, 8)])
-    state = mt.MTState(*(x[:0] for x in tensors_to(st_np, cuda)))
-    ops = mt.MTOps(*(x[:0] for x in tensors_to(ops_np, cuda)))
-    before = (fold_cuda.fold_resolving.launches,
-              dict(fold_cuda.fold_resolving.placements))
-    final, resolved = fold_cuda.fold_resolving(state, ops)
-    assert final.tstart.shape[0] == 0 and resolved.shape[0] == 0
-    assert (fold_cuda.fold_resolving.launches,
-            fold_cuda.fold_resolving.placements) == before
-
-
 def test_matrix_entry_point_on_card_matches_oracle(cuda):
     from fluidframework_tpu_torch.ops import matrix_kernel as mk
     from fluidframework_tpu_torch.testing import config_workloads as cw
@@ -823,13 +736,10 @@ def test_matrix_entry_point_on_card_matches_oracle(cuda):
     docs = cw.hard_matrix_docs() + [cw.crafted_matrix_doc(c)
                                     for c in cw.CRAFTED_MATRIX] + \
         [cw.gen_matrix_doc(i, 64) for i in range(64)]
-    before = (fold_cuda.fold_resolving.launches,
-              matrix_fold_cuda.fold_resolving.launches)
+    before = matrix_fold_cuda.fold_resolving.launches
     stats = {}
     got = mk.replay_matrix_batch(docs, stats=stats)
-    assert (fold_cuda.fold_resolving.launches,
-            matrix_fold_cuda.fold_resolving.launches) == \
-        (before[0], before[1] + 1)
+    assert matrix_fold_cuda.fold_resolving.launches == before + 1
     assert stats == {"device_docs": len(docs) - 2, "fallback_docs": 2}
     assert [s.digest() for s in got] == \
         [mk.oracle_matrix_fallback(d).digest() for d in docs]
@@ -864,10 +774,9 @@ _MATRIX_FOLDS = [(c, w) for c in sorted(_matrix_batches())
 
 @pytest.mark.parametrize("corpus,warmth", _MATRIX_FOLDS)
 def test_matrix_fold_kernel_matches_plain(cuda, corpus, warmth):
-    """K4 against the plain ``replay_scan_resolving`` and its earlier
-    design (the resolving build of csrc/mergetree_fold.cu): every plane,
-    ``n``, ``overflow`` and resolved handle, padding rows included, cold
-    (no state read) where the batch is, and warm; one launch, no fact
+    """K4 against the plain ``replay_scan_resolving``: every plane, ``n``,
+    ``overflow`` and resolved handle, padding rows included, cold (no
+    state read) where the batch is, and warm; one launch, no fact
     violated."""
     from fluidframework_tpu_torch.ops import matrix_fold_cuda as mf
     from fluidframework_tpu_torch.ops import matrix_kernel as mk
@@ -888,8 +797,6 @@ def test_matrix_fold_kernel_matches_plain(cuda, corpus, warmth):
     assert not violations.any()
     want, want_resolved = mk.replay_scan_resolving(state, ops)
     _assert_matrix_equal(want, want_resolved, got, got_resolved)
-    old, old_resolved = fold_cuda.fold_resolving(state, ops)
-    _assert_matrix_equal(old, old_resolved, got, got_resolved)
 
 
 def test_matrix_fold_kernel_in_device_memory(cuda):
@@ -997,24 +904,20 @@ def _splice_edge_planes(dtype, K, T, L, device, seed=11):
 @pytest.mark.parametrize("K", [1, 3])
 @pytest.mark.parametrize("T", [37, 40])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
-def test_splice_kernel_edges_match_plain_and_earlier(cuda, dtype, T, K):
+def test_splice_kernel_edges_match_plain(cuda, dtype, T, K):
     """The splice at ``count`` 0 and L, ``start`` near T, odd K and odd T
     (rows at every byte offset, so the vector width and the edges vary),
-    on int8, int16 and int32 planes: equal to the plain version and to the
-    earlier design, in place."""
+    on int8, int16 and int32 planes: equal to the plain version, in
+    place."""
     from fluidframework_tpu_torch.ops import resident_cuda
 
     base, rows, start, count = _splice_edge_planes(dtype, K, T, 7, cuda)
-    kernel, plain, before = (mt.MTOps(*(x.clone() for x in base))
-                             for _ in range(3))
+    kernel, plain = (mt.MTOps(*(x.clone() for x in base)) for _ in range(2))
     resident_cuda.splice_rows(kernel, rows, start, count)
     resident_cuda.splice_rows_reference(plain, rows, start, count)
-    resident_cuda.splice_rows(before, rows, start, count,
-                              lib=resident_cuda.earlier_library())
     torch.cuda.synchronize()
     for f in mt.MTOps._fields:
         assert torch.equal(getattr(kernel, f), getattr(plain, f)), f
-        assert torch.equal(getattr(kernel, f), getattr(before, f)), f
     assert not torch.equal(kernel.seq, base.seq)
 
 
@@ -1044,11 +947,10 @@ def test_splice_row_groups_is_one_launch_equal_to_plain(cuda):
 
 
 @pytest.mark.parametrize("T", [36, 37])
-def test_widen_kernel_odd_widths_match_plain_and_earlier(cuda, T):
+def test_widen_kernel_odd_widths_match_plain(cuda, T):
     """The migration of hand-built narrow ops whose rows are and are not a
     multiple of 4 elements (the vector and the scalar path), insert rows
-    rebased, others zeroed: equal to the plain decode and the earlier
-    design."""
+    rebased, others zeroed: equal to the plain decode."""
     from fluidframework_tpu_torch.ops import resident_cuda
 
     gen = torch.Generator().manual_seed(3)
@@ -1066,13 +968,10 @@ def test_widen_kernel_odd_widths_match_plain_and_earlier(cuda, T):
     base = torch.tensor([0, 7, -5, 2 ** 31 - 10, 100], dtype=torch.int32,
                         device=cuda)
     got = resident_cuda.widen_resident(ops, base)
-    old = resident_cuda.widen_resident(ops, base,
-                                       lib=resident_cuda.earlier_library())
     want = mt._widen_ops(ops, base)
     torch.cuda.synchronize()
     for f in mt.MTOps._fields:
         assert torch.equal(getattr(want, f), getattr(got, f)), f
-        assert torch.equal(getattr(old, f), getattr(got, f)), f
 
 
 @pytest.mark.parametrize("corpus", ["mixed", "attribution"])

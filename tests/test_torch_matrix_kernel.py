@@ -26,7 +26,7 @@ from fluidframework_tpu.testing.fuzz import MatrixFuzzSpec, run_fuzz
 from fluidframework_tpu.testing.mocks import channel_log
 from fluidframework_tpu_torch.convert import matrix_doc_input_from, tensors_to
 from fluidframework_tpu_torch.dds import SharedMatrix
-from fluidframework_tpu_torch.ops import fold_cuda, matrix_fold_cuda
+from fluidframework_tpu_torch.ops import matrix_fold_cuda
 from fluidframework_tpu_torch.ops import matrix_kernel as mk
 from fluidframework_tpu_torch.testing import config_workloads as cw
 from tools import bench_configs
@@ -159,8 +159,8 @@ def _ref_fold(state, ops):
 
 
 def _port_fold(state_np, ops_np):
-    final, resolved = fold_cuda.fold_resolving(tensors_to(state_np, "cpu"),
-                                               tensors_to(ops_np, "cpu"))
+    final, resolved, _v = matrix_fold_cuda.fold_resolving(
+        tensors_to(state_np, "cpu"), tensors_to(ops_np, "cpu"))
     return {f: x.numpy() for f, x in final._asdict().items()}, \
         resolved.numpy()
 
@@ -307,7 +307,7 @@ def test_oracle_copy_matches_jax_oracle_on_the_fixture():
 
 
 def test_plain_version_counts_no_launch():
-    entries = (fold_cuda.fold_resolving, matrix_fold_cuda.fold_resolving)
+    entries = (matrix_fold_cuda.fold_resolving,)
     before = [(e.launches, dict(e.placements)) for e in entries]
     mk.replay_matrix_batch([cw.gen_matrix_doc(i, 16) for i in range(3)],
                            device="cpu")
@@ -478,8 +478,8 @@ def test_entry_point_without_device_raises_when_no_cuda(monkeypatch):
 def test_wrapper_refuses_non_cuda_non_cpu_tensors():
     state_np, ops_np, _m = mk.pack_matrix_batch([cw.gen_matrix_doc(0, 8)])
     with pytest.raises(ValueError, match="cpu or cuda"):
-        fold_cuda.fold_resolving(tensors_to(state_np, "meta"),
-                                 tensors_to(ops_np, "meta"))
+        matrix_fold_cuda.fold_resolving(tensors_to(state_np, "meta"),
+                                        tensors_to(ops_np, "meta"))
 
 
 if __name__ == "__main__":

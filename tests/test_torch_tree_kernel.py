@@ -306,54 +306,6 @@ def test_launch_shape_is_one_document_a_block(D, N, C, where, tile, table,
     assert tree_fold_cuda.doc_bytes(N, C, where, tile, table) == smem
 
 
-class _Entry:
-    """A stand-in for a kernel library's ``tree_fold`` entry that records
-    the launch it is asked for."""
-
-    def __init__(self):
-        self.asked = []
-
-    def tree_fold(self, ptrs, D, N, C, T, gmem, docs_per_block, stream):
-        self.asked.append((gmem, docs_per_block))
-        return 0
-
-
-@pytest.mark.parametrize("N, C, gmem, per_block", [
-    (256, 128, 0, 4),       # the pinned chunk: 8 KiB forests, 4 a block
-    (2048, 1024, 0, 3),     # 65,536 B forests: 3 fit a block
-    (8192, 128, 0, 1),      # 230,400 B: one fits, barely
-    (8192, 512, 1, 4),      # 233,472 B: past a block, device memory
-])
-def test_earlier_design_launches_by_its_own_rule(N, C, gmem, per_block):
-    """The yardstick takes the launch its own wrapper made (the forest
-    alone in shared memory when it fits, as many a block as fit, at most
-    4), whatever ``fold`` passes, and hands back the entry's code."""
-    lib = _Entry()
-    rc = tree_fold_cuda.EarlierLaunch(lib).tree_fold(
-        None, 8, N, C, 64, 0, 1, None)
-    assert rc == 0
-    assert lib.asked == [(gmem, per_block)]
-
-
-@pytest.mark.parametrize("name, entry", [
-    ("tree_fold", "int tree_fold(void* const* ptrs, int D, int N, int C, "
-                  "int T, int gmem,\n              int docs_per_block, "
-                  "void* stream)"),
-    ("map_lww", "int map_lww(void* const* ptrs, int N, int G, int M, "
-                "int docs, void* stream)"),
-])
-def test_earlier_design_keeps_the_kernels_c_entry(name, entry):
-    """The yardstick source and the kernel's source declare the same C
-    entry, so one binding (``bind``) drives both."""
-    import os
-
-    csrc = os.path.join(os.path.dirname(tree_fold_cuda.__file__), "..",
-                        "csrc")
-    for source in (f"{name}.cu", f"{name}_earlier.cu"):
-        with open(os.path.join(csrc, source)) as f:
-            assert f.read().count(entry) == 1, source
-
-
 @pytest.mark.parametrize("corpus", sorted(CORPORA))
 def test_replay_tree_batch_matches_reference_and_oracle(corpus):
     docs = CORPORA[corpus]()

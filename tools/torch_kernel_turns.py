@@ -1,56 +1,54 @@
 #!/usr/bin/env python3
-"""Time the port's hand-written kernels against their earlier designs, in
-turns, in one process on one card: the SharedTree edit-fold (K5,
-``csrc/tree_fold.cu``), the SharedMap LWW reduction (K7,
-``csrc/map_lww.cu``), the SharedMatrix resolving axis fold (K4,
-``csrc/matrix_fold.cu``) and the resident splice and widen (K6,
-``csrc/resident.cu``).
+"""Time the port's hand-written kernels in turns, on one card.
+
+The SharedTree edit-fold (K5, ``csrc/tree_fold.cu``), the SharedMap LWW
+reduction (K7, ``csrc/map_lww.cu``), the SharedMatrix resolving axis
+fold (K4, ``csrc/matrix_fold.cu``) and the resident splice and widen
+(K6, ``csrc/resident.cu``), each beside builds of it that answer one
+question each, in one process.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU::
 
     python3 tools/torch_kernel_turns.py [--kernels tree,map,matrix,resident]
         [--tree-baseline OTHER_tree_fold.cu] [--map-baseline OTHER_map_lww.cu]
-        [--matrix-baseline OTHER_mergetree_fold.cu]
-        [--resident-baseline OTHER_resident.cu] [--earlier-only]
+        [--matrix-baseline OTHER_matrix_fold.cu]
+        [--resident-baseline OTHER_resident.cu]
         [--tree-wide N C ...] [--reps 7]
 
-The baselines are the earlier designs kept in the repo
-(``csrc/tree_fold_earlier.cu``, ``csrc/map_lww_earlier.cu``, the
-resolving builds of ``csrc/mergetree_fold.cu``,
-``csrc/resident_earlier.cu``) unless another source with the same C entry
-is named.  A tree baseline launches by the earlier design's own rule
-(``tree_fold_cuda.EarlierLaunch``).  ``--kernels`` picks the families to
-run (all by default); ``--earlier-only`` times only the earlier designs of
-K4 and K6, with their splits, and builds none of the current ones.  The
+A baseline is another source of a kernel with its current C entry, timed
+beside it and launched by its current wrapper: an earlier commit's, say,
+unpacked by ``git archive`` into a directory ``.gitignore`` lists
+(``tools/torch_fold_variants.py --baseline`` does the same for the
+merge-tree fold).  Without one, a family times its kernel and the builds
+below.  ``--kernels`` picks the families to run (all by default).  The
 tool builds, with the kernels' own nvcc flags and all at once:
 
-- ``tree`` and ``map``: the sources as they are; ``tree_baseline`` and
-  ``map_baseline``; ``tree_gmem`` is the ``tree`` build with every forest
-  in device memory (``InDeviceMemory``), to time the placements;
+- ``tree`` and ``map``: the sources as they are, and ``tree_baseline`` /
+  ``map_baseline`` when named; ``tree_gmem`` is the ``tree`` build with
+  every forest in device memory (``InDeviceMemory``), to time the
+  placements;
 - three builds of the tree source made by textual edits: ``copy_only``
   skips the fold of every edit row, so it times the copies in and out and
   the digest alone; ``no_walk_table`` takes the lean shared-memory
-  layout (the walk over the planes) at every shape; ``phase_cycles`` adds ``clock64()`` counters around
-  the copy in (with the decode and the walk table), the reads of the
-  decoded rows, their application without the ancestor walk, the walk,
-  the write-back and the digest, summed over all warps, with the slowest
-  document's total;
+  layout (the walk over the planes) at every shape; ``phase_cycles`` adds
+  ``clock64()`` counters around the copy in (with the decode and the walk
+  table), the reads of the decoded rows, their application without the
+  ancestor walk, the walk, the write-back and the digest, summed over all
+  warps, with the slowest document's total;
 - three builds of the map source that split its time (``MAP_VARIANTS``:
   the memset alone, without the key pass, without the atomics);
-- ``matrix`` and ``matrix_baseline`` (K4), the ``MATRIX_VARIANTS``
-  builds of the current source (another block-team width, register cap
-  or op-tile height), and each of the two with a ``phase_cycles``
-  build: ``clock64()`` counters around the copy in, the resolve rows, the
-  folding rows' view, arrival kill and move, and the write-back, summed
-  over all streams, with the rows counted and the slowest stream's
-  total.  The baseline's is made by textual edits (``K4_PHASES``), the
-  current source's by its own ``-DMATRIX_FOLD_CYCLES`` counters;
-- ``resident`` and ``resident_baseline`` (K6), each with a
-  ``phase_cycles`` build: per thread, its cycles, the cycles of the
-  copies (splice) or of the rebase test (widen), the elements it visited
-  and wrote, summed, with the slowest thread's total (textual edits
-  ``K6_PHASES`` for the baseline, ``-DRESIDENT_CYCLES`` for the current
-  source).
+- ``matrix`` (K4), ``matrix_baseline`` when named, the
+  ``MATRIX_VARIANTS`` builds of the source (another block-team width,
+  register cap or op-tile height) and a ``phase_cycles`` build (the
+  source's own ``-DMATRIX_FOLD_CYCLES`` counters around the copy in, the
+  resolve rows, the folding rows' view, arrival kill and move, and the
+  write-back, summed over all streams, with the rows counted and the
+  slowest stream's total);
+- ``resident`` (K6), ``resident_baseline`` when named, and a
+  ``phase_cycles`` build (the source's ``-DRESIDENT_CYCLES`` counters: per
+  thread, its cycles, the cycles of the copies (splice) or of the rebase
+  test (widen), the elements it visited and wrote, summed, with the
+  slowest thread's total).
 
 The inputs are ``chip_smoke.py``'s: the tree kernel's pinned chunk (the
 first 1,024 documents the tree workload dispatches, 48 edits each,
@@ -66,9 +64,9 @@ pads a chunk to its widest document's buckets (each build in its own
 placement there).  Every build that folds must give the kernel's result
 bit for bit (both tree builds, fold and fold + digest, at every shape;
 every output of the map reduction; every plane and resolved handle of
-the matrix fold, cold and warm; every splice and widen plane).  Then each
-kernel and its baseline are timed in turns (A B B A), two ways, both with
-CUDA events and each a median over its launches:
+the matrix fold, cold and warm; every splice and widen plane).  Then
+every build is timed in turns, in the order built and then reversed, two
+ways, both with CUDA events and each a median over its launches:
 
 - ``device_ms``: each launch behind a ~1 ms device spin, so the events
   bound the kernel alone and not the host's time to enqueue it;
@@ -224,150 +222,12 @@ MAP_VARIANTS = {
 K4_PARTS = ("copy_in", "resolve", "view", "kill", "move", "write_back")
 K4_COUNTERS = K4_PARTS + ("resolve_rows", "fold_rows", "slowest_stream",
                           "streams")
-_K4_FLUSH = (
-    "  if (lane == 0) {\n"
-    "    for (int i = 0; i < 6; ++i)\n"
-    "      atomicAdd(&g_cyc[i], (unsigned long long)cyc_[i]);\n"
-    "    atomicAdd(&g_cyc[6], (unsigned long long)nres_);\n"
-    "    atomicAdd(&g_cyc[7], (unsigned long long)nfold_);\n"
-    "    atomicMax(&g_cyc[8], (unsigned long long)(clock64() - t0_));\n"
-    "    atomicAdd(&g_cyc[9], 1ull);\n"
-    "  }\n")
-#: read-and-reset entries of the phase builds' counters
-_READ_RESET = (
-    'int {name}(unsigned long long* out) {{\n'
-    '  const cudaError_t e = cudaMemcpyFromSymbol(out, g_cyc, sizeof(g_cyc));\n'
-    '  if (e != cudaSuccess) return (int)e;\n'
-    '  const unsigned long long zero[{n}] = {{}};\n'
-    '  return (int)cudaMemcpyToSymbol(g_cyc, zero, sizeof(g_cyc));\n}}\n')
-_K4_ENTRY = 'extern "C" {\n\n' + _READ_RESET.format(
-    name="mergetree_fold_cycles", n=10)
-
-
-def _timed(line: str, slot: int, indent: str) -> tuple:
-    """An edit that wraps one statement of the K4 source (one that declares
-    nothing) in clock64()."""
-    return (line, f"{indent}{{ const long long c_ = clock64();\n{line}"
-                  f"{indent}cyc_[{slot}] += clock64() - c_; }}\n")
-
-
-#: Edit set for the resolving builds of csrc/mergetree_fold.cu (the earlier
-#: design of K4): lane 0 of each warp (one stream) counts its cycles in
-#: each part.  ``copy_in`` holds the state's and every op tile's load,
-#: ``resolve`` the resolve rows (view, second pass, the write),
-#: ``view`` / ``kill`` / ``move`` the folding rows' parts (``move`` with the
-#: insert's own slot), ``write_back`` the copies out.
-K4_PHASES = [
-    ("constexpr unsigned kFull = 0xffffffffu;\n",
-     "constexpr unsigned kFull = 0xffffffffu;\n"
-     "__device__ unsigned long long g_cyc[10];\n"),
-    ("  if (d >= args.D) return;  // nothing below waits on other warps\n",
-     "  if (d >= args.D) return;  // nothing below waits on other warps\n"
-     "  long long cyc_[6] = {0, 0, 0, 0, 0, 0}, nres_ = 0, nfold_ = 0;\n"
-     "  const long long t0_ = clock64();\n"),
-    _timed("      load(t0, tl, t0 == 0);\n", 0, "      "),
-    _timed("      load_ops_plain(doc, pvb, args, d, t0, tl);\n", 0, "      "),
-    _timed("    n = load_state_plain(doc, args, d, overflow);\n", 0, "    "),
-    ("          const int h = resolve_row(doc, min(n, S),\n",
-     "          const long long r_ = clock64();\n"
-     "          const int h = resolve_row(doc, min(n, S),\n"),
-    ("          __syncwarp();  // v / cum are read before the next row's "
-     "view\n",
-     "          __syncwarp();  // v / cum are read before the next row's "
-     "view\n          cyc_[1] += clock64() - r_;\n          ++nres_;\n"),
-    ("      const int nl = min(n, S);  // live slots held\n",
-     "      const int nl = min(n, S);  // live slots held\n      ++nfold_;\n"
-     "      const long long v_ = clock64();\n"),
-    ("      __syncwarp();  // v / cum are seen by every lane\n",
-     "      __syncwarp();  // v / cum are seen by every lane\n"
-     "      cyc_[2] += clock64() - v_;\n"),
-    _timed("        arrival_kill(doc, nl, w, r.msn, r.ref, r.client, kill_seq,\n"
-           "                     kill_client);\n", 3, "        "),
-    ("        move_and_stamp(doc, r, w, cut_a, false, cut_a ? w.ia : w.ja, "
-     "nl);\n",
-     "        const long long m_ = clock64();\n"
-     "        move_and_stamp(doc, r, w, cut_a, false, cut_a ? w.ia : w.ja, "
-     "nl);\n"),
-    ("        n += 1 + cut_a;\n",
-     "        n += 1 + cut_a;\n        cyc_[4] += clock64() - m_;\n"),
-    ("        const bool over = move_and_stamp(doc, r, w, cut_a, cut_b, lo, "
-     "hi);\n",
-     "        const long long m_ = clock64();\n"
-     "        const bool over = move_and_stamp(doc, r, w, cut_a, cut_b, lo, "
-     "hi);\n        cyc_[4] += clock64() - m_;\n"),
-    ("  if constexpr (kExport) {\n    export_doc(doc, args, d, n, overflow);\n",
-     "  const long long wb_ = clock64();\n"
-     "  if constexpr (kExport) {\n    export_doc(doc, args, d, n, overflow);\n"),
-    ("    if (lane == 0) {\n      args.n_out[d] = n;\n"
-     "      args.ov_out[d] = overflow ? 1 : 0;\n    }\n  }\n}\n",
-     "    if (lane == 0) {\n      args.n_out[d] = n;\n"
-     "      args.ov_out[d] = overflow ? 1 : 0;\n    }\n  }\n"
-     "  __syncwarp();\n  cyc_[5] = clock64() - wb_;\n" + _K4_FLUSH + "}\n"),
-    ('extern "C" {\n', _K4_ENTRY),
-]
 
 #: the counters of the K6 phase builds: per thread, its cycles, the
 #: cycles of its copies (splice) or rebase tests (widen), the elements it
 #: visited and wrote; then the slowest thread's cycles and the threads
 K6_COUNTERS = ("thread_cycles", "part_cycles", "visited", "written",
                "slowest_thread", "threads")
-_K6_FLUSH = (
-    "  {\n    unsigned long long v_[4] = {(unsigned long long)(clock64() - "
-    "k0_),\n        (unsigned long long)part_, (unsigned long long)vis_,\n"
-    "        (unsigned long long)wr_};\n    unsigned long long mx_ = v_[0];\n"
-    "    for (int o = 16; o > 0; o >>= 1) {\n"
-    "      for (int i = 0; i < 4; ++i) v_[i] += __shfl_xor_sync(0xffffffffu, "
-    "v_[i], o);\n"
-    "      const unsigned long long y_ = __shfl_xor_sync(0xffffffffu, mx_, o);"
-    "\n      mx_ = y_ > mx_ ? y_ : mx_;\n    }\n"
-    "    if ((threadIdx.x & 31) == 0) {\n"
-    "      for (int i = 0; i < 4; ++i) atomicAdd(&g_cyc[i], v_[i]);\n"
-    "      atomicMax(&g_cyc[4], mx_);\n      atomicAdd(&g_cyc[5], 32ull);\n"
-    "    }\n  }\n")
-_K6_ENTRY = ('extern "C" int resident_splice_rows(',
-             'extern "C" ' + _READ_RESET.format(name="resident_cycles", n=6)
-             + '\nextern "C" int resident_splice_rows(')
-#: Edit sets for the earlier design of K6 (csrc/resident_earlier.cu), one a
-#: kernel.  Every thread of a block reaches the flush (the loops have no
-#: early exit), so the warp reductions see all 32 lanes.
-K6_PHASES = {
-    "splice": [
-        ("constexpr int kMaxPlanes = 16;\n",
-         "constexpr int kMaxPlanes = 16;\n"
-         "__device__ unsigned long long g_cyc[6];\n"),
-        ("__global__ void splice_rows_kernel(SpliceArgs a) {\n",
-         "__global__ void splice_rows_kernel(SpliceArgs a) {\n"
-         "  const long long k0_ = clock64();\n"
-         "  long long part_ = 0, vis_ = 0, wr_ = 0;\n"),
-        ("    const int k = static_cast<int>(i % K);\n",
-         "    ++vis_;\n    const int k = static_cast<int>(i % K);\n"),
-        ("    if (es == 1) {\n      static_cast<int8_t*>(a.dst[p])[di] =\n",
-         "    const long long c_ = clock64();\n"
-         "    if (es == 1) {\n      static_cast<int8_t*>(a.dst[p])[di] =\n"),
-        ("          static_cast<const int32_t*>(a.src[p])[i];\n    }\n  }\n}\n",
-         "          static_cast<const int32_t*>(a.src[p])[i];\n    }\n"
-         "    part_ += clock64() - c_;\n    ++wr_;\n  }\n" + _K6_FLUSH
-         + "}\n"),
-        _K6_ENTRY,
-    ],
-    "widen": [
-        ("constexpr int kMaxPlanes = 16;\n",
-         "constexpr int kMaxPlanes = 16;\n"
-         "__device__ unsigned long long g_cyc[6];\n"),
-        ("__global__ void widen_kernel(WidenArgs a) {\n",
-         "__global__ void widen_kernel(WidenArgs a) {\n"
-         "  const long long k0_ = clock64();\n"
-         "  long long part_ = 0, vis_ = 0, wr_ = 0;\n"),
-        ("    int v = load_int(a.src[p], a.esize[p], i);\n",
-         "    ++vis_;\n    ++wr_;\n"
-         "    int v = load_int(a.src[p], a.esize[p], i);\n"
-         "    const long long c_ = clock64();\n"),
-        ("      v = INT_MAX;\n    }\n    a.dst[p][i] = v;\n  }\n}\n",
-         "      v = INT_MAX;\n    }\n    part_ += clock64() - c_;\n"
-         "    a.dst[p][i] = v;\n  }\n" + _K6_FLUSH + "}\n"),
-        _K6_ENTRY,
-    ],
-}
 
 #: Builds of csrc/matrix_fold.cu that try other choices: another block-team
 #: width at S > 128 (S / 4 or S / 32 threads in place of S / 16), a looser
@@ -418,6 +278,14 @@ class InDeviceMemory:
 
 
 FAMILIES = ("tree", "map", "matrix", "resident")
+#: each family's source in csrc/, the builds made from it by textual edits,
+#: and the flag that builds its own phase counters in
+SOURCES = {"tree": "tree_fold.cu", "map": "map_lww.cu",
+           "matrix": "matrix_fold.cu", "resident": "resident.cu"}
+VARIANTS = {"tree": TREE_VARIANTS, "map": MAP_VARIANTS,
+            "matrix": MATRIX_VARIANTS, "resident": {}}
+CYCLE_FLAGS = {"matrix": "-DMATRIX_FOLD_CYCLES",
+               "resident": "-DRESIDENT_CYCLES"}
 
 
 def sources(args) -> dict:
@@ -434,67 +302,31 @@ def sources(args) -> dict:
         return made
 
     out = {}
-    if "tree" in args.kernels:
-        tree = read(os.path.join(CSRC, "tree_fold.cu"))
-        out["tree"] = ("tree", tree, ())
-        out["tree_baseline"] = ("tree", read(
-            args.tree_baseline or os.path.join(CSRC, "tree_fold_earlier.cu")),
-            ())
-        for variant, edits in TREE_VARIANTS.items():
-            out[f"tree_{variant}"] = ("tree", edited(
-                tree, edits, f"{variant} (csrc/tree_fold.cu)"), ())
-    if "map" in args.kernels:
-        lww = read(os.path.join(CSRC, "map_lww.cu"))
-        out["map"] = ("map", lww, ())
-        out["map_baseline"] = ("map", read(
-            args.map_baseline or os.path.join(CSRC, "map_lww_earlier.cu")),
-            ())
-        for variant, edits in MAP_VARIANTS.items():
-            out[f"map_{variant}"] = ("map", edited(
-                lww, edits, f"{variant} (csrc/map_lww.cu)"), ())
-    if "matrix" in args.kernels:
-        old = read(args.matrix_baseline
-                   or os.path.join(CSRC, "mergetree_fold.cu"))
-        if not args.earlier_only:
-            new = read(os.path.join(CSRC, "matrix_fold.cu"))
-            out["matrix"] = ("matrix", new, ())
-            out["matrix_phase_cycles"] = ("matrix", new,
-                                          ("-DMATRIX_FOLD_CYCLES",))
-            for variant, edits in MATRIX_VARIANTS.items():
-                out[f"matrix_{variant}"] = ("matrix", edited(
-                    new, edits, f"{variant} (csrc/matrix_fold.cu)"), ())
-        out["matrix_baseline"] = ("matrix_earlier", old, ())
-        out["matrix_baseline_phase_cycles"] = (
-            "matrix_earlier", edited(old, K4_PHASES, "K4 phase"), ())
-    if "resident" in args.kernels:
-        old = read(args.resident_baseline
-                   or os.path.join(CSRC, "resident_earlier.cu"))
-        if not args.earlier_only:
-            new = read(os.path.join(CSRC, "resident.cu"))
-            out["resident"] = ("resident", new, ())
-            out["resident_phase_cycles"] = ("resident", new,
-                                            ("-DRESIDENT_CYCLES",))
-        out["resident_baseline"] = ("resident", old, ())
-        for kernel, edits in K6_PHASES.items():
-            out[f"resident_baseline_{kernel}_cycles"] = (
-                "resident", edited(old, edits, f"K6 {kernel} phase"), ())
+    for family in args.kernels:
+        src = read(os.path.join(CSRC, SOURCES[family]))
+        out[family] = (family, src, ())
+        baseline = getattr(args, f"{family}_baseline")
+        if baseline:
+            out[f"{family}_baseline"] = (family, read(baseline), ())
+        for variant, edits in VARIANTS[family].items():
+            out[f"{family}_{variant}"] = (family, edited(
+                src, edits, f"{variant} (csrc/{SOURCES[family]})"), ())
+        if family in CYCLE_FLAGS:
+            out[f"{family}_phase_cycles"] = (family, src,
+                                             (CYCLE_FLAGS[family],))
     return out
 
 
 def build_all(texts: dict, out_dir: str) -> dict:
     """Compile every source with the kernels' nvcc flags, all at once;
     returns name -> (bound library, ptxas lines)."""
-    from fluidframework_tpu_torch.ops import (_cuda_build, fold_cuda,
-                                              map_lww_cuda, resident_cuda,
+    from fluidframework_tpu_torch.ops import (_cuda_build, map_lww_cuda,
+                                              matrix_fold_cuda, resident_cuda,
                                               tree_fold_cuda)
 
     binders = {"tree": tree_fold_cuda.bind, "map": map_lww_cuda.bind,
-               "matrix_earlier": fold_cuda.bind_all,
+               "matrix": matrix_fold_cuda.bind,
                "resident": resident_cuda.bind}
-    if "matrix" in {kind for kind, _t, _f in texts.values()}:
-        from fluidframework_tpu_torch.ops import matrix_fold_cuda
-
-        binders["matrix"] = matrix_fold_cuda.bind
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, (_kind, text, flags) in texts.items():
@@ -677,22 +509,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", default=",".join(FAMILIES),
                     help="the families to run, of " + ", ".join(FAMILIES))
-    ap.add_argument("--tree-baseline", help="another source with the C "
-                    "entry of csrc/tree_fold.cu (default: its earlier "
-                    "design, csrc/tree_fold_earlier.cu)")
-    ap.add_argument("--map-baseline", help="another source with the C "
-                    "entry of csrc/map_lww.cu (default: its earlier "
-                    "design, csrc/map_lww_earlier.cu)")
-    ap.add_argument("--matrix-baseline", help="another source with the "
-                    "resolving C entries of csrc/mergetree_fold.cu (default: "
-                    "that source, whose resolving builds are K4's earlier "
-                    "design)")
-    ap.add_argument("--resident-baseline", help="another source with the C "
-                    "entries of csrc/resident.cu (default: its earlier "
-                    "design, csrc/resident_earlier.cu)")
-    ap.add_argument("--earlier-only", action="store_true",
-                    help="time only the earlier designs of K4 and K6 (with "
-                    "their splits); build none of the current ones")
+    for family in FAMILIES:
+        ap.add_argument(f"--{family}-baseline", metavar="PATH",
+                        help=f"another source with the C entry of "
+                        f"csrc/{SOURCES[family]}, timed beside it")
     ap.add_argument("--tree-wide", nargs=2, type=int, action="append",
                     metavar=("N", "C"), help="also time the pinned chunk "
                     "padded to N node rows and C container rows")
@@ -750,15 +570,13 @@ def main() -> int:
 
 
 def tree_section(args, dev, texts, libs, parity, calls, phases, extra):
-    """K5 against its baseline: parity of every tree build, the calls to
-    time, the phase split and the shapes."""
+    """K5 and its builds: parity of every tree build, the calls to time,
+    the phase split and the shapes."""
     import torch
 
     from fluidframework_tpu_torch.convert import tensors_to
     from fluidframework_tpu_torch.ops import tree_fold_cuda
 
-    libs["tree_baseline"] = tree_fold_cuda.EarlierLaunch(
-        libs["tree_baseline"])
     libs["tree_gmem"] = InDeviceMemory(libs["tree"])
     texts["tree_gmem"] = texts["tree"]
     tree_names = [n for n in libs if texts[n][0] == "tree"]
@@ -834,8 +652,8 @@ def tree_section(args, dev, texts, libs, parity, calls, phases, extra):
 
 
 def map_section(dev, texts, libs, parity, calls):
-    """K7 against its baseline: parity of every build that reduces, and
-    the calls to time."""
+    """K7 and its builds: parity of every build that reduces, and the
+    calls to time."""
     import torch
 
     from fluidframework_tpu_torch.ops import map_kernel as mp
@@ -860,27 +678,23 @@ def map_section(dev, texts, libs, parity, calls):
 
 def matrix_section(dev, texts, libs, parity, calls, phases, extra,
                    tensors_to):
-    """K4 against its earlier design on the matrix phase's two batches:
-    every build's planes and resolved handles equal (the current source
-    cold and warm: the same fill state read), the calls to time, each
-    phase build's split and the warps each keeps resident on an SM."""
+    """K4 on the matrix phase's two batches: every build's planes and
+    resolved handles equal to the kernel's cold fold (cold and warm: the
+    same fill state read), the calls to time, each phase build's split and
+    the warps each keeps resident on an SM."""
     import torch
 
-    from fluidframework_tpu_torch.ops import fold_cuda
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda
 
-    names = [n for n in libs if texts[n][0] in ("matrix", "matrix_earlier")]
+    names = [n for n in libs if texts[n][0] == "matrix"]
     batches = {}
     for label, (st_np, ops_np, meta) in matrix_batches().items():
         batches[label] = (tensors_to(st_np, dev), tensors_to(ops_np, dev),
                           st_np.tstart.shape[1], meta["cold"])
-    if "matrix" in names:
-        from fluidframework_tpu_torch.ops import matrix_fold_cuda
 
     def call(name, label, warm=False):
         state, ops, S, _cold = batches[label]
         lib = libs[name]
-        if texts[name][0] == "matrix_earlier":
-            return lambda: fold_cuda.fold_resolving(state, ops, lib=lib)
         if warm:
             return lambda: matrix_fold_cuda.fold_resolving(state, ops,
                                                            lib=lib)[:2]
@@ -893,11 +707,10 @@ def matrix_section(dev, texts, libs, parity, calls, phases, extra,
     occupancy, cold_flags = {}, {}
     for label, (_st, _ops, S, cold) in batches.items():
         cold_flags[label] = cold
-        want = leaves(call("matrix_baseline", label)())
+        want = leaves(call("matrix", label)())
         for name in names:
-            for warm in ((False, True) if texts[name][0] == "matrix"
-                         else (False,)):
-                if name == "matrix_baseline":
+            for warm in (False, True):
+                if name == "matrix" and not warm:
                     continue
                 log(f"K4 {name} {'warm' if warm else 'cold'} at {label}")
                 got = leaves(call(name, label, warm)())
@@ -908,22 +721,15 @@ def matrix_section(dev, texts, libs, parity, calls, phases, extra,
             if name.endswith("phase_cycles"):
                 continue
             calls[f"{name}@{label}"] = call(name, label)
-            if texts[name][0] == "matrix":
-                calls[f"{name}_warm@{label}"] = call(name, label, True)
-            occupancy[f"{name}@{label}"] = (
-                fold_cuda.occupancy(S, 1, lib=libs[name],
-                                    kernel="fold_resolving")
-                if texts[name][0] == "matrix_earlier"
-                else matrix_fold_cuda.occupancy(S, lib=libs[name]))
+            calls[f"{name}_warm@{label}"] = call(name, label, True)
+            occupancy[f"{name}@{label}"] = matrix_fold_cuda.occupancy(
+                S, lib=libs[name])
         for name in names:
             if not name.endswith("phase_cycles"):
                 continue
-            entry = "mergetree_fold_cycles" \
-                if texts[name][0] == "matrix_earlier" else "matrix_fold_cycles"
-            for warm in ((False, True) if texts[name][0] == "matrix"
-                         else (False,)):
-                one = read_phases(libs[name], entry, K4_COUNTERS,
-                                  call(name, label, warm))
+            for warm in (False, True):
+                one = read_phases(libs[name], "matrix_fold_cycles",
+                                  K4_COUNTERS, call(name, label, warm))
                 total = sum(one[p] for p in K4_PARTS)
                 phases[f"{name}{'_warm' if warm else ''}@{label}"] = {
                     "cycles": one,
@@ -937,8 +743,7 @@ def matrix_section(dev, texts, libs, parity, calls, phases, extra,
 
 
 def resident_section(dev, texts, libs, parity, calls, phases, extra):
-    """K6 against its earlier design on the warm phase's first chunk: the
-    splice of the grown suffix into 10 int32 planes (each build on its own
+    """K6 on the warm phase's first chunk: the splice of the grown suffix into 10 int32 planes (each build on its own
     copy, every element from each document's old count on bit-flipped
     first) and the migration of the cold chunk's narrow ops, every build
     equal to the plain versions; the calls to time and the phase splits."""
@@ -999,9 +804,6 @@ def resident_section(dev, texts, libs, parity, calls, phases, extra):
                 "widen": lambda: resident_cuda.widen_resident(
                     narrow, base, lib=lib)}
         for kernel, run in runs.items():
-            if name.startswith("resident_baseline_") \
-                    and not name.startswith(f"resident_baseline_{kernel}_"):
-                continue
             one = read_phases(lib, "resident_cycles", K6_COUNTERS, run)
             phases[f"{name}@{kernel}"] = {
                 "counters": one,
