@@ -43,7 +43,13 @@ class KernelFamily:
       - ``entry_nbytes(state, ops, meta)`` → retained bytes for the LRU
         budget;
       - ``extend(entry, chunk)`` → ``(state, ops, meta)`` | None: pack
-        only the suffix on top of a cached window (None = repack).
+        only the suffix on top of a cached window (None = repack);
+      - ``slice_pack(chunk, k)`` → the pack of ``chunk`` cut into ``k``
+        document ranges, or None where the family packs the chunk whole:
+        an object whose steps ``intern()``, ``begin(j)``, ``size()``,
+        ``finish(j)`` and ``join()`` (→ ``pack``'s result) the pipeline
+        runs, ``begin`` and ``finish`` of different ranges at once
+        (``tree_native.RecordPack``).  None: every chunk packs whole.
 
     upload / dispatch
       - ``order(batch, schedule)`` → schedule-order index list;
@@ -98,6 +104,7 @@ class KernelFamily:
     gather_rows: Callable[[Any, Any], Tuple[Any, int]]
     extract: Callable[[dict, Any, dict], Any]
     per_doc_meta: Tuple[str, ...] = ()
+    slice_pack: Optional[Callable[[Any, int], Any]] = None
     # mesh
     make_pad: Optional[Callable[[], Any]] = None
     pad_token: Optional[Callable[[int], tuple]] = None

@@ -12,7 +12,10 @@ Shape (as the reference's):
 - packing (C++, GIL released) and the upload narrowing run in a thread
   pool, extraction (widen + C++ bodies) in another, a chunk cut into
   document slices that run as tasks of their own (once every chunk of
-  the call is packed, the pack pool's idle workers take slices too); ALL
+  the call is packed, the pack pool's idle workers take slices too); a
+  chunk whose family can pack it by document ranges (``slice_pack``: the
+  tree's native record pack) is cut into ranges on both pools' workers,
+  driven from a third pool whose threads intern and join; ALL
   device interaction — upload, dispatch, starting the d2h copy, the
   waits — stays on the calling thread (the reference's
   single-device-thread contract);
@@ -31,8 +34,9 @@ counters ``h2d_bytes``/``d2h_bytes``.  ``upload`` times the explicit
 host-to-device copies (the reference's upload rides inside its dispatch
 call, so its ``upload`` reads 0 without the device-resident tier).  The
 port adds ``HOST_CPU_KEYS``: the pool legs' thread CPU seconds beside
-their wall seconds, and the counter ``extract_tasks``: the extract tasks
-submitted (a chunk's slices).  While a ``torch.profiler`` session runs,
+their wall seconds, and the counters ``extract_tasks``: the extract tasks
+submitted (a chunk's slices), and ``pack_tasks``: the pack tasks each
+chunk ran (1, or its ranges).  While a ``torch.profiler`` session runs,
 the calling thread's legs are spans (``pipeline.<leg>``, and
 ``pipeline.replay``, ``pipeline.wait_pack``, ``pipeline.wait_extract``
 around the whole call and its waits on the pools), on the clock of the
@@ -60,7 +64,7 @@ import collections
 import contextlib
 import itertools
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from time import perf_counter, thread_time
 from typing import List, Optional, Sequence
 
@@ -587,6 +591,7 @@ def seed_stage(stage: Optional[dict]) -> None:
     stage.setdefault("h2d_bytes", 0)
     stage.setdefault("d2h_bytes", 0)
     stage.setdefault("extract_tasks", 0)
+    stage.setdefault("pack_tasks", 0)
     for key in EXTRACT_STAGE_COUNTS:
         stage.setdefault(key, 0)
 
@@ -901,7 +906,8 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
 
     # The pool legs time themselves on their own threads (wall and
     # thread CPU seconds, returned last) and open no span: the calling
-    # thread adds both to ``stage`` and spans its waits on them.
+    # thread adds both to ``stage`` and spans its waits on them.  A pack
+    # returns the tasks it ran besides.
     def pack_one(lo):
         t0, c0 = perf_counter(), thread_time()
         chunk = sched[lo:lo + chunk_docs]
@@ -910,7 +916,53 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
         else:
             state, ops, meta = family.pack(chunk)
         state, ops = family.narrow(chunk, state, ops, meta)
-        return state, ops, meta, perf_counter() - t0, thread_time() - c0
+        return state, ops, meta, perf_counter() - t0, thread_time() - c0, 1
+
+    def timed(fn, *args):
+        t0, c0 = perf_counter(), thread_time()
+        res = fn(*args)
+        return res, perf_counter() - t0, thread_time() - c0
+
+    def pack_sliced(lo, sliced, k, prev_turn, turn):
+        """A chunk's pack cut into ``k`` document ranges
+        (``family.slice_pack``): the intern here, once the previous
+        sliced chunk's intern is done, so that the chunk the device takes
+        first is packed first; each range's begin, then each range's
+        finish, spread over both pools as extract slices are; the join
+        here.  It runs on a thread of neither pool, so no worker waits on
+        a task queued to its own pool.  Its busy seconds sum every step's
+        thread."""
+        chunk = sched[lo:lo + chunk_docs]
+        busy = [0.0, 0.0]
+
+        def add(dt, dc) -> None:
+            busy[0] += dt
+            busy[1] += dc
+
+        def ranges(step) -> None:
+            futs = [(ex_pool if j < extract_threads else pack_pool).submit(
+                timed, step, j) for j in range(k)]
+            wait(futs)
+            for fut in futs:
+                add(*fut.result()[1:])
+
+        try:
+            try:
+                if prev_turn is not None:
+                    prev_turn.wait()
+                add(*timed(sliced.intern)[1:])
+            finally:
+                turn.set()
+            ranges(sliced.begin)
+            add(*timed(sliced.size)[1:])
+            ranges(sliced.finish)
+            (state, ops, meta), dt, dc = timed(sliced.join)
+        finally:
+            sliced.close()
+        add(dt, dc)
+        (state, ops), dt, dc = timed(family.narrow, chunk, state, ops, meta)
+        add(dt, dc)
+        return state, ops, meta, busy[0], busy[1], k
 
     def extract_rows(meta, arr, lo, hi, dig_np):
         """Extract documents ``[lo, hi)`` of a chunk from its full
@@ -964,12 +1016,35 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
     pack_futs: collections.deque = collections.deque()
     ex_futs: collections.deque = collections.deque()
     inflight: collections.deque = collections.deque()
+    last_turn: Optional[threading.Event] = None
+    # At most pack_threads + 1 packs are pending, so each sliced pack has
+    # a thread of the last pool to itself.
     with ThreadPoolExecutor(max_workers=pack_threads) as pack_pool, \
-            ThreadPoolExecutor(max_workers=extract_threads) as ex_pool:
+            ThreadPoolExecutor(max_workers=extract_threads) as ex_pool, \
+            ThreadPoolExecutor(max_workers=pack_threads + 1) as sliced_pool:
         try:
+            def submit_pack(lo):
+                # A chunk of at least two slices' documents, which no pack
+                # cache serves, is cut into as many document ranges as
+                # both pools have workers, where the family offers it.
+                nonlocal last_turn
+                chunk = sched[lo:lo + chunk_docs]
+                k = min(pack_threads + extract_threads,
+                        len(chunk) // MIN_SLICE_DOCS)
+                sliced = family.slice_pack(chunk, k) \
+                    if k > 1 and pack_cache is None \
+                    and family.slice_pack is not None else None
+                if sliced is None:
+                    return pack_pool.submit(pack_one, lo)
+                turn = threading.Event()
+                fut = sliced_pool.submit(pack_sliced, lo, sliced, k,
+                                         last_turn, turn)
+                last_turn = turn
+                return fut
+
             next_i = 0
             while next_i < len(starts) and len(pack_futs) < pack_threads + 1:
-                pack_futs.append(pack_pool.submit(pack_one, starts[next_i]))
+                pack_futs.append(submit_pack(starts[next_i]))
                 next_i += 1
 
             def submit_slices(meta, arr, dig_np=None) -> list:
@@ -1049,12 +1124,13 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
             while pack_futs:
                 fut = pack_futs.popleft()
                 with span("pipeline.wait_pack"):
-                    state, ops, meta, dt, dc = fut.result()
+                    state, ops, meta, dt, dc, tasks = fut.result()
                 if next_i < len(starts):
-                    pack_futs.append(
-                        pack_pool.submit(pack_one, starts[next_i]))
+                    pack_futs.append(submit_pack(starts[next_i]))
                     next_i += 1
                 _add_leg(stage, "pack", dt, dc)
+                if stage is not None:
+                    stage["pack_tasks"] += tasks
                 if stats is not None and meta.get("native_docs"):
                     # documents a family's native record pack packed
                     stats["native_pack_docs"] = \

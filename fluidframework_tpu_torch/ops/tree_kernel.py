@@ -674,6 +674,27 @@ def tree_buckets(docs: Sequence[TreeDocInput]):
     return N, T
 
 
+def _record_route(docs: Sequence[TreeDocInput]) -> bool:
+    """Whether the native record pack takes ``docs``: every document
+    carries records and no base summary."""
+    return bool(docs) and all(
+        d.records is not None and d.base_summary is None for d in docs)
+
+
+def slice_tree_pack(docs: Sequence[TreeDocInput], k: int):
+    """``pack_tree_batch``'s native route for ``docs`` cut into ``k``
+    document ranges (a ``tree_native.RecordPack``, no step run yet), or
+    None where that route does not take them: the same planes and meta,
+    bit for bit."""
+    from .tree_native import RecordPack, load_library
+
+    lib = load_library() if _record_route(docs) else None
+    if lib is None:
+        return None
+    N, T = tree_buckets(docs)
+    return RecordPack(lib, docs, N, T, k)
+
+
 def pack_tree_batch(docs: Sequence[TreeDocInput]):
     """Pack documents into uniform-shape arrays + host metadata.  A batch
     whose documents all carry records and no base summary packs natively
@@ -685,8 +706,7 @@ def pack_tree_batch(docs: Sequence[TreeDocInput]):
     from .tree_native import pack_records, value_table
 
     N, T = tree_buckets(docs)
-    if docs and all(d.records is not None and d.base_summary is None
-                    for d in docs):
+    if _record_route(docs):
         packed = pack_records(docs, N, T)
         if packed is not None:
             return packed

@@ -13,8 +13,9 @@ index is the forest row it packs to.  A ``TreeDocInput`` carrying
 meta of ``tree_kernel.pack_tree_batch`` for a batch of such documents in
 C++ (``libtreepack``, built from the source by the content-hashed rule of
 ``ops/native_pack.py``; the interpreter lock is released around each
-call), bit for bit what the Python pack fills from the same messages.
-Without a toolchain it returns None and the Python pack runs on the
+call), bit for bit what the Python pack fills from the same messages;
+``RecordPack`` is that pack as steps over document ranges, which the
+pipeline runs on several threads.  Without a toolchain it returns None and the Python pack runs on the
 decoded messages.  ``decode_tree_ops`` gives back the messages the stream
 was encoded from (the oracle's route: MAX_DEPTH overflow, purged-parent
 inserts), and ``route_records`` the pre-pack routing verdict.
@@ -514,72 +515,148 @@ def _intern_values(recs: Sequence[TreeRecords]):
     return values, np.ascontiguousarray(flat, np.int32), offs
 
 
+class RecordPack:
+    """The native record pack of one batch, cut into ``k`` document ranges
+    and run a step at a time, so that the ranges' steps can run on
+    several threads (each native step releases the interpreter lock):
+
+    1. ``intern()``: the batch-global value table, in first-appearance
+       order, and each document's doc-local -> global value map;
+    2. ``begin(j)``: parse range ``j``'s streams (``treepack_begin``);
+    3. ``size()``: the chunk-wide container bucket ``C`` from every
+       range's facts, and every plane allocated once for the batch;
+    4. ``finish(j)``: fill range ``j``'s rows of those planes in place
+       (``treepack_finish``), and its containers;
+    5. ``join()``: the meta, and ``pack_records``'s result.
+
+    Steps 2 and 4 of different ranges may run at once; every step 2 ends
+    before step 3, and every step 4 before step 5.  A malformed stream or
+    an overflow names the first such document of the batch, as one range
+    does.  ``close()`` frees what a failed pack leaves."""
+
+    def __init__(self, lib, docs, N: int, T: int, k: int) -> None:
+        self.lib, self.docs, self.N, self.T = lib, docs, N, T
+        D = len(docs)
+        self.cuts = [D * j // k for j in range(k + 1)]
+        self.handles: List[Optional[int]] = [None] * k
+        self.bad = [-1] * k
+        self.rcs = [0] * k
+
+    def intern(self) -> None:
+        self.recs = [doc.records for doc in self.docs]
+        self.values, self.vmap, self.voffs = _intern_values(self.recs)
+        self.lens = np.asarray([len(r.blob) for r in self.recs], np.int64)
+        self.facts = np.empty((len(self.recs), 7), np.int32)
+
+    def begin(self, j: int) -> None:
+        lo, hi = self.cuts[j], self.cuts[j + 1]
+        blobs = (ctypes.c_char_p * (hi - lo))(
+            *[r.blob for r in self.recs[lo:hi]])
+        bad = ctypes.c_int32(-1)
+        # The value map stays whole: the range's offsets index it from
+        # its start.
+        self.handles[j] = self.lib.treepack_begin(
+            hi - lo, blobs, self.lens[lo:].ctypes.data, self.vmap.ctypes.data,
+            self.voffs[lo:].ctypes.data, self.facts[lo:].ctypes.data,
+            ctypes.byref(bad))
+        self.bad[j] = bad.value
+
+    def size(self) -> None:
+        from .interning import next_bucket
+        from .tree_kernel import TreeEdits, TreeState
+
+        for j, handle in enumerate(self.handles):
+            if not handle:
+                self.close()
+                bad = self.docs[self.cuts[j] + self.bad[j]]
+                raise ValueError(f"{bad.doc_id}: malformed tree record "
+                                 "stream")
+        D, N, T = len(self.docs), self.N, self.T
+        self.n_nodes, self.n_cont, self.t_rows = (
+            np.ascontiguousarray(self.facts[:, i]) for i in range(3))
+        self.C = C = next_bucket(max(int(self.n_cont.max(initial=0)), 1),
+                                 floor=8)
+        self.cont_at = np.concatenate(([0], np.cumsum(self.n_cont,
+                                                      dtype=np.int64)))
+        self.conts = np.empty((int(self.cont_at[-1]), 2), np.int32)
+        self.st = {f: np.empty((D, C if f in ("head", "container_parent")
+                                else N), np.int32)
+                   for f in TreeState._fields if f != "overflow"}
+        self.st["overflow"] = np.zeros((D,), np.bool_)
+        self.ed = {f: np.empty((D, T), np.int32) for f in TreeEdits._fields}
+        self.planes = [self.st[f] for f in TreeState._fields
+                       if f != "overflow"] \
+            + [self.ed[f] for f in TreeEdits._fields]
+
+    def finish(self, j: int) -> None:
+        lo = self.cuts[j]
+        handle, self.handles[j] = self.handles[j], None
+        try:
+            self.lib.treepack_containers(
+                handle, self.conts[self.cont_at[lo]:].ctypes.data)
+            ptrs = (ctypes.c_void_p * len(self.planes))(
+                *[a[lo:].ctypes.data for a in self.planes])
+            self.rcs[j] = self.lib.treepack_finish(handle, self.N, self.C,
+                                                   self.T, ptrs)
+        finally:
+            self.lib.treepack_free(handle)
+
+    def join(self):
+        from .tree_kernel import TreeEdits, TreeState, _RecordDocPack
+
+        docs, recs, facts = self.docs, self.recs, self.facts
+        for lo, rc in zip(self.cuts, self.rcs):
+            if rc != 0:
+                raise ValueError(
+                    f"{docs[lo - 1 - rc].doc_id}: tree records overflow the "
+                    f"buckets N={self.N}, C={self.C}, T={self.T}")
+        conts, at = self.conts, 0
+        doc_packs = []
+        for d, rec in enumerate(recs):
+            n, c = int(self.n_nodes[d]), int(self.n_cont[d])
+            if n != rec.n_packed or len(rec.node_types) != n:
+                raise ValueError(f"{docs[d].doc_id}: tree records' node "
+                                 "table is not in the pack's order")
+            pack = _RecordDocPack(rec)
+            pack.node_ids = TableInterner(rec.nodes[:n])
+            pack.node_types = list(rec.node_types)
+            pack.containers = TableInterner(
+                [(int(p), rec.fields[f])
+                 for p, f in conts[at:at + c].tolist()])
+            at += c
+            pack.fallback_reason = FALLBACKS[int(facts[d, 6])]
+            pack.header_seq = int(facts[d, 3])
+            pack.base_min_seq = int(facts[d, 4])
+            pack.boundary = int(facts[d, 5])
+            doc_packs.append(pack)
+        meta = {"doc_packs": doc_packs, "values": self.values, "docs": docs,
+                "n_nodes": self.n_nodes, "n_cont": self.n_cont,
+                "t_rows": self.t_rows, "native_docs": len(docs),
+                "value_json": value_table(self.values)}
+        return TreeState(**self.st), TreeEdits(**self.ed), meta
+
+    def close(self) -> None:
+        for j, handle in enumerate(self.handles):
+            if handle:
+                self.lib.treepack_free(handle)
+            self.handles[j] = None
+
+
 def pack_records(docs, N: int, T: int):
     """``pack_tree_batch``'s ``(TreeState, TreeEdits, meta)`` for
     documents that all carry records and no base summary, from the native
-    library at the buckets ``(N, T)``; None without the library.  The meta
+    library at the buckets ``(N, T)``: the steps of :class:`RecordPack`
+    over one range, on this thread.  None without the library.  The meta
     also counts the documents packed here (``native_docs``)."""
-    from .interning import next_bucket
-    from .tree_kernel import TreeEdits, TreeState, _RecordDocPack
-
     lib = load_library()
     if lib is None:
         return None
-    recs = [doc.records for doc in docs]
-    D = len(recs)
-    values, vmap, voffs = _intern_values(recs)
-    blobs = (ctypes.c_char_p * D)(*[r.blob for r in recs])
-    lens = np.asarray([len(r.blob) for r in recs], np.int64)
-    facts = np.empty((D, 7), np.int32)
-    bad = ctypes.c_int32(-1)
-    handle = lib.treepack_begin(D, blobs, lens.ctypes.data, vmap.ctypes.data,
-                                voffs.ctypes.data, facts.ctypes.data,
-                                ctypes.byref(bad))
-    if not handle:
-        raise ValueError(f"{docs[bad.value].doc_id}: malformed tree record "
-                         "stream")
-    try:
-        n_nodes, n_cont, t_rows = (np.ascontiguousarray(facts[:, i])
-                                   for i in range(3))
-        C = next_bucket(max(int(n_cont.max(initial=0)), 1), floor=8)
-        conts = np.empty((int(n_cont.sum()), 2), np.int32)
-        lib.treepack_containers(handle, conts.ctypes.data)
-        st = {f: np.empty((D, C if f in ("head", "container_parent") else N),
-                          np.int32)
-              for f in TreeState._fields if f != "overflow"}
-        st["overflow"] = np.zeros((D,), np.bool_)
-        ed = {f: np.empty((D, T), np.int32) for f in TreeEdits._fields}
-        order = [st[f] for f in TreeState._fields if f != "overflow"] \
-            + [ed[f] for f in TreeEdits._fields]
-        ptrs = (ctypes.c_void_p * len(order))(*[a.ctypes.data for a in order])
-        rc = lib.treepack_finish(handle, N, C, T, ptrs)
-    finally:
-        lib.treepack_free(handle)
-    if rc != 0:
-        raise ValueError(f"{docs[-1 - rc].doc_id}: tree records overflow the "
-                         f"buckets N={N}, C={C}, T={T}")
-    doc_packs = []
-    at = 0
-    for d, rec in enumerate(recs):
-        n, c = int(n_nodes[d]), int(n_cont[d])
-        if n != rec.n_packed or len(rec.node_types) != n:
-            raise ValueError(f"{docs[d].doc_id}: tree records' node table "
-                             "is not in the pack's order")
-        pack = _RecordDocPack(rec)
-        pack.node_ids = TableInterner(rec.nodes[:n])
-        pack.node_types = list(rec.node_types)
-        pack.containers = TableInterner(
-            [(int(p), rec.fields[f]) for p, f in conts[at:at + c].tolist()])
-        at += c
-        pack.fallback_reason = FALLBACKS[int(facts[d, 6])]
-        pack.header_seq = int(facts[d, 3])
-        pack.base_min_seq = int(facts[d, 4])
-        pack.boundary = int(facts[d, 5])
-        doc_packs.append(pack)
-    meta = {"doc_packs": doc_packs, "values": values, "docs": docs,
-            "n_nodes": n_nodes, "n_cont": n_cont, "t_rows": t_rows,
-            "native_docs": D, "value_json": value_table(values)}
-    return TreeState(**st), TreeEdits(**ed), meta
+    pack = RecordPack(lib, docs, N, T, 1)
+    pack.intern()
+    pack.begin(0)
+    pack.size()
+    pack.finish(0)
+    return pack.join()
 
 
 # -- the native summary writer ------------------------------------------------

@@ -64,6 +64,7 @@ from .tree_kernel import (
     oracle_fallback_summary,
     pack_tree_batch,
     scatter_tree_doc_rows,
+    slice_tree_pack,
     summary_from_state,
     tree_buckets,
 )
@@ -476,6 +477,7 @@ TREE_FAMILY = KernelFamily(
     extract=lambda meta, arr, st: summaries_from_tree_export(
         meta, arr, stats=st, counts=st),
     per_doc_meta=("n_nodes", "n_cont", "t_rows"),
+    slice_pack=slice_tree_pack,
     make_pad=lambda: TreeDocInput(doc_id="\x00pad", ops=[]),
     pad_token=_mt_pad_token,
     dispatch_sharded=_tree_dispatch_sharded,

@@ -132,7 +132,7 @@ def test_stage_schema_matches_reference():
     ref_pipeline.seed_stage(ref)
     assert port == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0),
                     "extract_tasks": 0, "extract_nodes": 0,
-                    "extract_native_docs": 0}
+                    "extract_native_docs": 0, "pack_tasks": 0}
 
 
 def test_all_fallback_batch_still_reports_every_stage():
@@ -151,7 +151,7 @@ def test_all_fallback_batch_still_reports_every_stage():
     ref_pipeline.seed_stage(ref)
     assert stage == {**ref, **dict.fromkeys(pipeline.HOST_CPU_KEYS, 0.0),
                      "extract_tasks": 0, "extract_nodes": 0,
-                     "extract_native_docs": 0}
+                     "extract_native_docs": 0, "pack_tasks": 0}
     assert stage["h2d_bytes"] == stage["d2h_bytes"] == 0
     assert summary.digest() == \
         workload.oracle_replay(workload.overflow_doc()).summarize().digest()
@@ -303,6 +303,8 @@ def test_extract_tasks_follow_the_chunk_and_the_free_workers(
     assert [arenas[id(meta["arena"])] for _s, _o, meta, _t in packed] == \
         tasks
     assert stage["extract_tasks"] == sum(tasks)
+    # the merge-tree family packs every chunk whole: one task a chunk
+    assert stage["pack_tasks"] == len(packed)
     assert [s.digest() for s in got] == \
         [s.digest() for s in mt.replay_mergetree_batch(docs, device="cpu")]
 

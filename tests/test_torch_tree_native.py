@@ -166,6 +166,108 @@ def test_a_malformed_stream_raises():
         tk.pack_tree_batch([doc])
 
 
+def _sliced_pack(docs, k, N=None, T=None):
+    """The native record pack of ``docs`` cut into ``k`` ranges, each
+    range's begin and finish on a thread of its own, submitted last range
+    first."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if N is None:
+        pack = tk.slice_tree_pack(docs, k)
+    else:
+        pack = tn.RecordPack(tn.load_library(), docs, N, T, k)
+    pack.intern()
+    with ThreadPoolExecutor(max_workers=k) as pool:
+        for f in [pool.submit(pack.begin, j) for j in reversed(range(k))]:
+            f.result()
+        pack.size()
+        for f in [pool.submit(pack.finish, j) for j in reversed(range(k))]:
+            f.result()
+    return pack.join()
+
+
+def _late_corpus():
+    """Record documents of the pinned workload, of several lengths, the
+    one with the most containers last, and their message twins."""
+    idx = list(range(48))
+    streams = [synth_tree_messages(i, 40 + 5 * (i % 9)) for i in idx]
+    docs = [_doc(i, m, records=True) for i, m in zip(idx, streams)]
+    plain = [_doc(i, m) for i, m in zip(idx, streams)]
+    n_cont = tk.pack_tree_batch(docs)[2]["n_cont"]
+    last = int(np.argmax(n_cont))
+    order = [d for d in range(len(docs)) if d != last] + [last]
+    return [docs[d] for d in order], [plain[d] for d in order]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7])
+def test_the_sliced_pack_equals_the_whole_and_the_python_pack(k):
+    """Cut into ``k`` ranges, the record pack fills the planes and the
+    meta of the whole native pack and of the Python pack, bit for bit:
+    values that first appear in a later range keep the batch's
+    first-appearance order, and a document outside range 0 sets ``C``."""
+    from fluidframework_tpu_torch.ops.interning import next_bucket
+
+    docs, plain = _late_corpus()
+    whole = tk.pack_tree_batch(docs)
+    python = tk.pack_tree_batch(plain)
+    got = _sliced_pack(docs, k)
+    _assert_packs_equal(whole, got)
+    _assert_packs_equal(python, got)
+    assert got[2]["native_docs"] == len(docs)
+    for a, b in zip(got[2]["value_json"], whole[2]["value_json"],
+                    strict=True):
+        assert np.array_equal(a, b)
+    assert [p.containers.values for p in got[2]["doc_packs"]] == \
+        [p.containers.values for p in python[2]["doc_packs"]]
+    cut = len(docs) // k
+    first = {}
+    for d, doc in enumerate(docs):
+        for v in doc.records.values[:doc.records.n_packed_values]:
+            first.setdefault(v, d)
+    if k > 1:
+        assert max(first.values()) >= cut
+        n_cont = got[2]["n_cont"]
+        assert next_bucket(max(int(n_cont[:cut].max()), 1), floor=8) \
+            < got[0].head.shape[1]
+
+
+@pytest.mark.parametrize("k", [2, 3, 7])
+def test_the_sliced_pack_names_the_first_malformed_document(k):
+    """A malformed stream inside a later range (and another after it)
+    raises what the whole pack raises: the first such document."""
+    docs, _plain = _late_corpus()
+    for d in (len(docs) * (k - 1) // k + 1, len(docs) - 1):
+        docs[d].records.blob = docs[d].records.blob[:-3]
+    with pytest.raises(ValueError) as whole:
+        tk.pack_tree_batch(docs)
+    with pytest.raises(ValueError) as sliced:
+        _sliced_pack(docs, k)
+    assert str(sliced.value) == str(whole.value)
+    assert docs[len(docs) * (k - 1) // k + 1].doc_id in str(whole.value)
+
+
+@pytest.mark.parametrize("k", [2, 3, 7])
+def test_the_sliced_pack_names_the_first_overflowing_document(k):
+    """Edit rows past ``T`` inside a later range raise what the whole pack
+    raises at the same buckets: the first such document, with the same
+    message."""
+    docs, _plain = _late_corpus()
+    docs.append(_doc(99, synth_tree_messages(99, 160), records=True))
+    t_rows = tk.pack_tree_batch(docs)[2]["t_rows"]
+    lo = len(docs) * (k - 1) // k
+    T = int(t_rows[:lo].max())
+    assert int(t_rows[lo:].max()) > T
+    N, _T = tk.tree_buckets(docs)
+    with pytest.raises(ValueError) as whole:
+        tn.pack_records(docs, N, T)
+    with pytest.raises(ValueError) as sliced:
+        _sliced_pack(docs, k, N, T)
+    assert str(sliced.value) == str(whole.value)
+    first = next(d for d in range(len(docs)) if t_rows[d] > T)
+    assert first >= lo
+    assert str(whole.value).startswith(f"{docs[first].doc_id}: ")
+
+
 @pytest.mark.parametrize("seed", [5, 2 ** 33 + 1, 7_777_777_777])
 def test_pipeline_on_records_equals_the_plain_reference(seed):
     pool = _pool(seed)

@@ -394,3 +394,67 @@ def test_document_slices_extract_the_unsliced_bytes(monkeypatch, n_docs, k):
     assert sliced == [s.digest() for s in tk.replay_tree_batch(
         docs, device="cpu")]
     assert sliced == [tk.oracle_fallback_summary(d).digest() for d in docs]
+
+
+def _record_pool(n_docs, n_ops, seed):
+    from portbench import run, sharedtree
+
+    spec = run.load_cell("tree_long.forest_cold")
+    pool = sharedtree.generate(spec.config, spec.traffic, seed,
+                               n_docs=n_docs, n_ops=n_ops)
+    return pool, sharedtree.inputs(pool)
+
+
+def test_a_record_chunk_packs_in_ranges_on_both_pools():
+    """A 1,024-document chunk of record documents packs as 7 ranges at the
+    defaults (``stage["pack_tasks"]``), a chunk under 128 documents as one
+    task; the summaries and counts are the unsliced pipeline's, and the
+    summaries the benchmark's plain reference's."""
+    from portbench.reference import sharedtree as ref
+
+    pool, docs = _record_pool(1024 + 100, 24, 2 ** 33 + 17)
+
+    def run():
+        stage, stats = {}, {}
+        got = tp.pipelined_tree_replay(docs, device="cpu", stage=stage,
+                                       stats=stats)
+        return [s.digest() for s in got], stage, stats, got
+
+    sliced, stage, stats, got = run()
+    assert stage["pack_tasks"] == 7 + 1
+    whole_family = dataclasses.replace(tp.TREE_FAMILY, slice_pack=None)
+    w_stage, w_stats = {}, {}
+    whole = pipeline.pipelined_family_replay(
+        whole_family, docs, device="cpu", stage=w_stage, stats=w_stats)
+    assert w_stage["pack_tasks"] == 2
+    assert sliced == [s.digest() for s in whole]
+    assert stats == w_stats == {"native_pack_docs": len(docs),
+                                "device_docs": len(docs)}
+    for d in range(0, pool.n_docs, 37):
+        want = ref.replay(pool.records(d), pool.final_msn)
+        assert {k: v.content for k, v in got[d].children.items()} == want
+
+
+def test_a_sliced_pack_on_one_worker_a_pool_finishes():
+    """With one pack and one extract worker, several record chunks each
+    cut into two ranges pack, fold and extract within a bounded wait, in
+    the caller's order."""
+    import threading
+
+    _pool, docs = _record_pool(5 * 128, 16, 41)
+    box = {}
+
+    def call():
+        stage = {}
+        box["got"] = tp.pipelined_tree_replay(
+            docs, chunk_docs=128, pack_threads=1, extract_threads=1,
+            stage=stage, device="cpu")
+        box["stage"] = stage
+
+    worker = threading.Thread(target=call, daemon=True)
+    worker.start()
+    worker.join(timeout=300)
+    assert not worker.is_alive(), "the sliced packs did not finish"
+    assert box["stage"]["pack_tasks"] == 5 * 2
+    assert [s.digest() for s in box["got"]] == \
+        [s.digest() for s in tk.replay_tree_batch(docs, device="cpu")]

@@ -192,16 +192,16 @@ def port_docs(ref_docs):
 def port_stage_keys(ref_stage) -> set:
     """The keys the port's stage dict holds where the reference's holds
     ``ref_stage``'s: the same keys, plus the port's CPU twins of the pack
-    and extract legs and its ``extract_tasks``, ``extract_nodes`` and
-    ``extract_native_docs`` counters wherever the stage schema was
-    seeded."""
+    and extract legs and its ``extract_tasks``, ``extract_nodes``,
+    ``extract_native_docs`` and ``pack_tasks`` counters wherever the stage
+    schema was seeded."""
     from fluidframework_tpu_torch.ops.pipeline import (EXTRACT_STAGE_COUNTS,
                                                        HOST_CPU_KEYS,
                                                        STAGE_KEYS)
 
     keys = set(ref_stage)
     if set(STAGE_KEYS) <= keys:
-        keys |= set(HOST_CPU_KEYS) | {"extract_tasks"} \
+        keys |= set(HOST_CPU_KEYS) | {"extract_tasks", "pack_tasks"} \
             | set(EXTRACT_STAGE_COUNTS)
     return keys
 
