@@ -6,7 +6,8 @@ pipeline does per chunk — pack, tier-2 window reuse, upload (tier 2.5),
 dispatch, the tier-0 digest handshake, download, extraction, fallback
 routing — goes through these hooks, and ``pipelined_mergetree_replay`` is
 one instance of the generic fold, ``pipelined_tree_replay``
-(``ops/tree_pipeline.py``) the second.
+(``ops/tree_pipeline.py``) the second, ``pipelined_matrix_replay``
+(``ops/matrix_pipeline.py``) the third.
 
 A family's ``(state, ops)`` are namedtuples of ``[D, ...]`` planes with
 the document axis leading — the invariant every generic helper

@@ -150,6 +150,18 @@ class MatrixDocInput:
     base_summary: Optional[SummaryTree] = None
     final_seq: int = 0
     final_msn: int = 0
+    #: the messages as binary records (``ops/matrix_native.py``); when set
+    #: and ``ops`` is empty, the records are the messages
+    records: Optional[object] = None
+
+
+def doc_messages(doc: MatrixDocInput) -> Sequence[SequencedMessage]:
+    """The document's messages: ``ops``, or its records decoded."""
+    if doc.records is not None and not doc.ops:
+        from .matrix_native import decode_matrix_ops
+
+        return decode_matrix_ops(doc.records)
+    return doc.ops
 
 
 def known_matrix_fallback(doc: MatrixDocInput) -> bool:
@@ -188,6 +200,8 @@ class _MatrixDocPack:
 def pack_matrix_batch(docs: Sequence[MatrixDocInput]):
     """Pack documents into one [2D, ...] axis-stream batch + host metadata
     (numpy ``MTState`` / ``MTOps``, as the reference's)."""
+    docs = list(docs)
+    msgs = [doc_messages(doc) for doc in docs]
     values = Interner()
     packs = [_MatrixDocPack() for _ in docs]
 
@@ -203,9 +217,9 @@ def pack_matrix_batch(docs: Sequence[MatrixDocInput]):
             }
         parsed.append((header, body))
 
-    def stream_ops(doc: MatrixDocInput, axis: str) -> int:
+    def stream_ops(d: int, axis: str) -> int:
         n = 0
-        for msg in doc.ops:
+        for msg in msgs[d]:
             kind = msg.contents["kind"]
             if kind == "setCell" or axis in kind.lower():
                 n += 1
@@ -213,7 +227,8 @@ def pack_matrix_batch(docs: Sequence[MatrixDocInput]):
 
     T = next_bucket(
         max(
-            [stream_ops(d, ax) for d in docs for ax in ("row", "col")],
+            [stream_ops(d, ax) for d in range(len(docs))
+             for ax in ("row", "col")],
             default=1,
         ),
         floor=16,
@@ -221,8 +236,8 @@ def pack_matrix_batch(docs: Sequence[MatrixDocInput]):
     S = next_bucket(
         max(
             (
-                len(body[axis]) + 2 * stream_ops(doc, ax)
-                for doc, (_h, body) in zip(docs, parsed)
+                len(body[axis]) + 2 * stream_ops(d, ax)
+                for d, (_h, body) in enumerate(parsed)
                 for axis, ax in (("rows", "row"), ("cols", "col"))
             ),
             default=1,
@@ -293,7 +308,7 @@ def pack_matrix_batch(docs: Sequence[MatrixDocInput]):
             st["n"][s_idx] = len(body[axis])
 
         t = {"row": -1, "col": -1}
-        for msg in doc.ops:
+        for msg in msgs[d]:
             if msg.type is not MessageType.OP:
                 continue
             contents = msg.contents
@@ -428,20 +443,25 @@ def oracle_matrix_fallback(doc: MatrixDocInput) -> SummaryTree:
     replica = SharedMatrix(doc.doc_id)
     if doc.base_summary is not None:
         replica.load(doc.base_summary)
-    for msg in doc.ops:
+    for msg in doc_messages(doc):
         replica.process(msg, local=False)
     replica.advance(doc.final_seq, doc.final_msn)
     return replica.summarize()
 
 
 def summary_from_matrix_state(meta, state_np, resolved_np, d: int,
-                              stats: Optional[dict] = None) -> SummaryTree:
+                              stats: Optional[dict] = None,
+                              counts: Optional[dict] = None) -> SummaryTree:
     """``stats`` counts this doc as device/fallback WHERE the routing
     decision is made, so the counters can never drift from the actual
-    serving path."""
+    serving path.  ``counts`` (when given) gets the cells the body holds
+    (``extract_cells``).  A document the native pack packed reads its
+    values from its own table (``matrix_native.RecordDocPack``)."""
     doc: MatrixDocInput = meta["docs"][d]
     pack: _MatrixDocPack = meta["packs"][d]
-    values: Interner = meta["values"]
+    values: Interner = getattr(pack, "values", None)
+    if values is None:
+        values = meta["values"]
     if bool(state_np["overflow"][2 * d]) or bool(state_np["overflow"][2 * d + 1]):
         if stats is not None:
             stats["fallback_docs"] = stats.get("fallback_docs", 0) + 1
@@ -464,6 +484,8 @@ def summary_from_matrix_state(meta, state_np, resolved_np, d: int,
             [row_map[rh], col_map[ch], values.lookup(val), seq, client_out]
         )
     cells.sort(key=lambda e: (e[0], e[1]))
+    if counts is not None:
+        counts["extract_cells"] = counts.get("extract_cells", 0) + len(cells)
 
     def visible(s_idx: int) -> int:
         n = int(state_np["n"][s_idx])

@@ -569,14 +569,20 @@ HOST_CPU_KEYS = ("pack_cpu", "extract_cpu")
 #: summaries, and ``extract_native_docs``, the documents whose header the
 #: tree family's native writer wrote (both 0 for merge-tree)
 EXTRACT_STAGE_COUNTS = ("extract_nodes", "extract_native_docs")
+#: counts that belong to the stage and that one family alone keeps, so the
+#: schema does not seed them: ``extract_cells``, the cells a matrix
+#: extraction wrote into summaries, and ``resolve_rows``, the matrix
+#: fold's resolve rows a chunk dispatched (its meta's ``resolve_rows``)
+FAMILY_STAGE_COUNTS = ("extract_cells", "resolve_rows")
 
 
 def merge_extract_counts(st: dict, stats: Optional[dict],
                          stage: Optional[dict]) -> None:
-    """Add one extract task's counts: ``EXTRACT_STAGE_COUNTS`` to
-    ``stage``, the rest to ``stats``."""
+    """Add one extract task's counts: ``EXTRACT_STAGE_COUNTS`` and
+    ``FAMILY_STAGE_COUNTS`` to ``stage``, the rest to ``stats``."""
     for k, v in st.items():
-        into = stage if k in EXTRACT_STAGE_COUNTS else stats
+        into = stage if k in EXTRACT_STAGE_COUNTS \
+            or k in FAMILY_STAGE_COUNTS else stats
         if into is not None:
             into[k] = into.get(k, 0) + v
 
@@ -1131,6 +1137,9 @@ def _pipelined_fold(family, batch, chunk_docs, pack_threads,
                 _add_leg(stage, "pack", dt, dc)
                 if stage is not None:
                     stage["pack_tasks"] += tasks
+                    if meta.get("resolve_rows"):
+                        stage["resolve_rows"] = stage.get(
+                            "resolve_rows", 0) + meta["resolve_rows"]
                 if stats is not None and meta.get("native_docs"):
                     # documents a family's native record pack packed
                     stats["native_pack_docs"] = \

@@ -848,17 +848,18 @@ class CatchupService:
             }
         else:
             from ..ops.map_kernel import replay_map_batch
-            from ..ops.matrix_kernel import replay_matrix_batch
+            from ..ops.matrix_pipeline import pipelined_matrix_replay
             from ..ops.pipeline import pipelined_mergetree_replay
             from ..ops.tree_pipeline import pipelined_tree_replay
 
-            # String + tree channels (the two kernel families of the generic
-            # pipeline) ride the chunked, single-device-thread family
-            # pipeline — the same code path the library entry measures; the
-            # map and matrix batches fold in one dispatch each.  Stage busy
-            # seconds + doc counts accumulate on this instance (the
-            # warm-vs-cold gates read them), and packed windows reuse through
-            # the per-family tier-2 pack caches.
+            # String, tree and matrix channels (the three kernel families
+            # of the generic pipeline) ride the chunked,
+            # single-device-thread family pipeline — the same code path the
+            # library entry measures; the map batch folds in one dispatch.
+            # Stage busy seconds + doc counts accumulate on this instance
+            # (the warm-vs-cold gates read them; the matrix channel, which
+            # no gate reads, counts documents only), and packed windows
+            # reuse through the per-family tier-2 pack caches.
             replay = {
                 STRING_TYPE: functools.partial(
                     pipelined_mergetree_replay,
@@ -874,7 +875,7 @@ class CatchupService:
                     replay_map_batch, stats=self.pipeline_stats,
                     device=self.device),
                 MATRIX_TYPE: functools.partial(
-                    replay_matrix_batch, stats=self.pipeline_stats,
+                    pipelined_matrix_replay, stats=self.pipeline_stats,
                     device=self.device),
                 TREE_TYPE: functools.partial(
                     pipelined_tree_replay,

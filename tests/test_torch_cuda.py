@@ -745,6 +745,43 @@ def test_matrix_entry_point_on_card_matches_oracle(cuda):
         [mk.oracle_matrix_fallback(d).digest() for d in docs]
 
 
+@pytest.mark.parametrize("form", ["records", "messages"])
+def test_matrix_pipeline_on_card_matches_oracle(cuda, form):
+    """The matrix family through the pipeline on the card: two chunks, a
+    sliced native pack (records), the writer and the Python route, the
+    fixture's fallbacks; the same summaries and counts as on the CPU."""
+    import dataclasses
+
+    from fluidframework_tpu_torch.ops import matrix_fold_cuda
+    from fluidframework_tpu_torch.ops import matrix_kernel as mk
+    from fluidframework_tpu_torch.ops import matrix_native as mn
+    from fluidframework_tpu_torch.ops.matrix_pipeline import \
+        pipelined_matrix_replay
+    from fluidframework_tpu_torch.testing import config_workloads as cw
+
+    docs = [cw.gen_matrix_doc(i, 300) for i in range(260)] \
+        + cw.hard_matrix_docs()
+    if form == "records":
+        docs = [dataclasses.replace(d, ops=[],
+                                    records=mn.encode_matrix_ops(d.ops))
+                if d.base_summary is None else d for d in docs]
+    runs = {}
+    for device in ("cpu", cuda):
+        stats, stage = {}, {}
+        before = matrix_fold_cuda.fold_resolving.launches
+        got = pipelined_matrix_replay(docs, chunk_docs=256, stats=stats,
+                                      stage=stage, device=device)
+        launches = matrix_fold_cuda.fold_resolving.launches - before
+        runs[str(device)] = ([s.digest() for s in got], stats,
+                             {k: stage[k] for k in (
+                                 "extract_native_docs", "extract_cells",
+                                 "resolve_rows", "pack_tasks")}, launches)
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    assert card[:3] == cpu[:3] and card[3] == 2 and cpu[3] == 0
+    assert card[0] == [mk.oracle_matrix_fallback(d).digest() for d in docs]
+    assert card[1]["fallback_docs"] == 2
+
+
 # ---------------------------------------------------------------------------
 # The matrix fold (csrc/matrix_fold.cu) and the resident kernels' edges
 # ---------------------------------------------------------------------------
