@@ -27,7 +27,8 @@
 //
 // API (C ABI, ctypes-consumed):
 //   oppack_count(...)    — sizing pre-pass
-//   oppack_pack(...)     — fill one document's row of the batch arrays
+//   oppack_scan(...)     — a range of documents' sizes and value facts
+//   oppack_fill(...)     — fill a range of documents' rows, wide or narrow
 //   oppack_extract(...)  — final device state → canonical summary-body JSON
 //
 // oppack_extract consumes the fused export buffer ([D, F, S] int32, see
@@ -40,6 +41,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <initializer_list>
 
 namespace {
 constexpr int64_t kHeader = 1 + 4 * 8;  // kind byte + 8 i32 fields
@@ -50,6 +52,122 @@ inline int64_t count_codepoints(const uint8_t* p, int64_t n) {
         chars += (p[i] & 0xC0) != 0x80;
     }
     return chars;
+}
+
+constexpr int32_t kInsert = 1;
+constexpr int32_t kObliterate = 4;
+constexpr int32_t kPropNotTouched = -2;
+
+// oppack_scan's facts, a row of kScanFacts int64 a document.  Each lo / hi
+// starts from 0, as a padded plane's min / max(initial=0) does.
+enum ScanFact {
+    kOps, kTextBytes, kTextChars,
+    kKindLo, kKindHi, kSeqLo, kSeqHi, kClientLo, kClientHi,
+    kRefLo, kRefHi, kMsnLo, kMsnHi, kALo, kAHi, kBLo, kBHi,
+    kTlenHi,     // the longest text, in chars
+    kInsAtHi,    // the furthest char offset of an insert's text in its doc
+    kValLo, kValHi,  // property value ids as the stream holds them
+    kFlags,
+    kScanFacts
+};
+// kFlags bits
+constexpr int64_t kHasObliterate = 1;   // an obliterate record
+constexpr int64_t kNotSequential = 2;   // a real op with ref_seq != seq - 1
+constexpr int64_t kEmptyInsert = 4;     // an insert with no text
+constexpr int64_t kOtherTextPast0 = 8;  // text on another kind, past char 0
+constexpr int64_t kOtherTextAt0 = 16;   // text on another kind, at char 0
+
+inline void widen_range(int64_t* f, int lo, int64_t v) {
+    if (v < f[lo]) f[lo] = v;
+    if (v > f[lo + 1]) f[lo + 1] = v;
+}
+
+// One document's rows: a row an op, its text copied to the arena (tstart /
+// tlen its span in chars), each property pair in its pvals column (the
+// rest PROP_NOT_TOUCHED), key and value ids through the maps (null: the
+// stream's ids; a negative value id, PROP_ABSENT, passes untranslated);
+// then the padding of the rows past its last op.  B is the element type
+// of kind and client, W of the other planes: int32 both for the wide
+// pack; int8 and int16 for the narrow upload encoding, where an insert's
+// tstart is rebased to its document and any other row's is 0.  Returns
+// the ops, or -1 on malformed input or more than T ops.
+template <typename B, typename W>
+int32_t fill_doc(const uint8_t* buf, int64_t len, int32_t T, int32_t K,
+                 int64_t doc_base, bool narrow, B* kind, W* seq, B* client,
+                 W* ref_seq, W* min_seq, W* a, W* b, W* tstart, W* tlen,
+                 W* pvals, const int32_t* key_map, int32_t n_keys,
+                 const int32_t* val_map, int32_t n_vals, uint8_t* arena_out,
+                 int64_t arena_capacity, int64_t* arena_used) {
+    for (int64_t i = 0; i < static_cast<int64_t>(T) * K; ++i)
+        pvals[i] = static_cast<W>(kPropNotTouched);
+    int64_t off = 0;
+    int32_t t = 0;
+    int64_t out_chars = 0;
+    int64_t used = *arena_used;
+    while (off < len) {
+        if (off + kHeader > len) return -1;
+        if (t >= T) return -1;
+        const uint8_t k = buf[off];
+        int32_t fields[8];
+        std::memcpy(fields, buf + off + 1, 4 * 8);
+        off += kHeader;
+        const int32_t n_props = fields[6];
+        const int32_t text_len = fields[7];
+        if (n_props < 0 || text_len < 0) return -1;
+        if (off + 8 * static_cast<int64_t>(n_props) + text_len > len)
+            return -1;
+        kind[t] = static_cast<B>(k);
+        seq[t] = static_cast<W>(fields[0]);
+        ref_seq[t] = static_cast<W>(fields[1]);
+        min_seq[t] = static_cast<W>(fields[2]);
+        client[t] = static_cast<B>(fields[3]);
+        a[t] = static_cast<W>(fields[4]);
+        b[t] = static_cast<W>(fields[5]);
+        for (int32_t i = 0; i < n_props; ++i) {
+            int32_t pair[2];
+            std::memcpy(pair, buf + off, 8);
+            off += 8;
+            int32_t col = pair[0];
+            int32_t val = pair[1];
+            if (key_map != nullptr) {
+                if (col < 0 || col >= n_keys) return -1;
+                col = key_map[col];
+            }
+            if (val_map != nullptr && val >= 0) {
+                if (val >= n_vals) return -1;
+                val = val_map[val];
+            }
+            if (col < 0 || col >= K) return -1;
+            pvals[static_cast<int64_t>(t) * K + col] = static_cast<W>(val);
+        }
+        const bool insert = k == kInsert;
+        if (text_len > 0) {
+            if (used + text_len > arena_capacity) return -1;
+            std::memcpy(arena_out + used, buf + off, text_len);
+            const int64_t chars = count_codepoints(buf + off, text_len);
+            if (narrow) {
+                tstart[t] = static_cast<W>(insert ? out_chars : 0);
+            } else {
+                tstart[t] = static_cast<W>(
+                    static_cast<int32_t>(doc_base + out_chars));
+            }
+            tlen[t] = static_cast<W>(chars);
+            used += text_len;
+            out_chars += chars;
+            off += text_len;
+        } else {
+            tstart[t] = static_cast<W>(narrow && insert ? -doc_base : 0);
+            tlen[t] = 0;
+        }
+        t += 1;
+    }
+    const int64_t pad = T - t;
+    std::memset(kind + t, 0, pad * sizeof(B));
+    std::memset(client + t, 0, pad * sizeof(B));
+    for (W* row : {seq, ref_seq, min_seq, a, b, tstart, tlen})
+        std::memset(row + t, 0, pad * sizeof(W));
+    *arena_used = used;
+    return t;
 }
 }  // namespace
 
@@ -83,79 +201,124 @@ int oppack_count(const uint8_t* buf, int64_t len,
     return 0;
 }
 
-// Packs one document's record stream into row-slices of the batch arrays.
-// `pvals` is the (T, K) row in C order, pre-filled with PROP_NOT_TOUCHED.
-// `key_map` / `val_map` translate the encoder's doc-local property key and
-// value ids into the batch-global intern spaces (null = identity; negative
-// value ids — PROP_ABSENT — pass through untranslated).
-// Returns ops packed, or -1 on malformed input / capacity overflow.
-int32_t oppack_pack(const uint8_t* buf, int64_t len,
-                    int32_t T, int32_t K, int64_t arena_base_chars,
-                    int32_t* kind, int32_t* seq, int32_t* client,
-                    int32_t* ref_seq, int32_t* min_seq, int32_t* a,
-                    int32_t* b, int32_t* tstart, int32_t* tlen,
-                    int32_t* pvals,
-                    uint8_t* arena_out, int64_t arena_capacity,
-                    int64_t* arena_bytes, int64_t* arena_chars,
-                    const int32_t* key_map, int32_t n_keys,
-                    const int32_t* val_map, int32_t n_vals) {
-    int64_t off = 0;
-    int32_t t = 0;
-    int64_t out_bytes = 0, out_chars = 0;
-    while (off < len) {
-        if (off + kHeader > len) return -1;
-        if (t >= T) return -1;
-        const uint8_t k = buf[off];
-        int32_t fields[8];
-        std::memcpy(fields, buf + off + 1, 4 * 8);
-        off += kHeader;
-        const int32_t n_props = fields[6];
-        const int32_t text_len = fields[7];
-        if (n_props < 0 || text_len < 0) return -1;
-        if (off + 8 * static_cast<int64_t>(n_props) + text_len > len)
-            return -1;
-        kind[t] = static_cast<int32_t>(k);
-        seq[t] = fields[0];
-        ref_seq[t] = fields[1];
-        min_seq[t] = fields[2];
-        client[t] = fields[3];
-        a[t] = fields[4];
-        b[t] = fields[5];
-        for (int32_t i = 0; i < n_props; ++i) {
-            int32_t pair[2];
-            std::memcpy(pair, buf + off, 8);
-            off += 8;
-            int32_t col = pair[0];
-            int32_t val = pair[1];
-            if (key_map != nullptr) {
-                if (col < 0 || col >= n_keys) return -1;
-                col = key_map[col];
+// Sizes and value facts of documents [0, D) of a range, one row of
+// kScanFacts int64 a document in `facts` (see ScanFact): what the pack's
+// buckets and its chunk-wide facts need, and the bounds that decide
+// whether the range's rows fit the narrow upload encoding, without filling
+// a plane.  Returns 0, or -1 - d for the first malformed document.
+int32_t oppack_scan(int32_t D, const uint8_t* const* blobs,
+                    const int64_t* lens, int64_t* facts) {
+    for (int32_t d = 0; d < D; ++d) {
+        const uint8_t* buf = blobs[d];
+        const int64_t len = lens[d];
+        int64_t* f = facts + static_cast<int64_t>(d) * kScanFacts;
+        for (int i = 0; i < kScanFacts; ++i) f[i] = 0;
+        int64_t off = 0;
+        while (off < len) {
+            if (off + kHeader > len) return -1 - d;
+            const int32_t k = buf[off];
+            int32_t fields[8];
+            std::memcpy(fields, buf + off + 1, 4 * 8);
+            off += kHeader;
+            const int32_t n_props = fields[6];
+            const int32_t text_len = fields[7];
+            if (n_props < 0 || text_len < 0) return -1 - d;
+            if (off + 8 * static_cast<int64_t>(n_props) + text_len > len)
+                return -1 - d;
+            widen_range(f, kKindLo, k);
+            widen_range(f, kSeqLo, fields[0]);
+            widen_range(f, kRefLo, fields[1]);
+            widen_range(f, kMsnLo, fields[2]);
+            widen_range(f, kClientLo, fields[3]);
+            widen_range(f, kALo, fields[4]);
+            widen_range(f, kBLo, fields[5]);
+            if (k == kObliterate) f[kFlags] |= kHasObliterate;
+            // ref_seq != seq - 1 in int32, as the plane's test wraps
+            if (k != 0 && fields[1] != static_cast<int32_t>(
+                    static_cast<uint32_t>(fields[0]) - 1u))
+                f[kFlags] |= kNotSequential;
+            for (int32_t i = 0; i < n_props; ++i) {
+                int32_t pair[2];
+                std::memcpy(pair, buf + off, 8);
+                off += 8;
+                widen_range(f, kValLo, pair[1]);
             }
-            if (val_map != nullptr && val >= 0) {
-                if (val >= n_vals) return -1;
-                val = val_map[val];
+            if (text_len > 0) {
+                const int64_t at = f[kTextChars];
+                const int64_t chars = count_codepoints(buf + off, text_len);
+                if (k == kInsert) {
+                    if (at > f[kInsAtHi]) f[kInsAtHi] = at;
+                } else {
+                    f[kFlags] |= at > 0 ? kOtherTextPast0 : kOtherTextAt0;
+                }
+                if (chars > f[kTlenHi]) f[kTlenHi] = chars;
+                f[kTextBytes] += text_len;
+                f[kTextChars] += chars;
+                off += text_len;
+            } else if (k == kInsert) {
+                f[kFlags] |= kEmptyInsert;
             }
-            if (col < 0 || col >= K) return -1;
-            pvals[static_cast<int64_t>(t) * K + col] = val;
+            f[kOps] += 1;
         }
-        if (text_len > 0) {
-            if (out_bytes + text_len > arena_capacity) return -1;
-            std::memcpy(arena_out + out_bytes, buf + off, text_len);
-            const int64_t chars = count_codepoints(buf + off, text_len);
-            tstart[t] = static_cast<int32_t>(arena_base_chars + out_chars);
-            tlen[t] = static_cast<int32_t>(chars);
-            out_bytes += text_len;
-            out_chars += chars;
-            off += text_len;
-        } else {
-            tstart[t] = 0;
-            tlen[t] = 0;
-        }
-        t += 1;
     }
-    *arena_bytes = out_bytes;
-    *arena_chars = out_chars;
-    return t;
+    return 0;
+}
+
+// Fills the op rows of documents [0, D) of a range from their streams
+// (fill_doc), padding each document's rows past its last op (0;
+// PROP_NOT_TOUCHED in pvals).  `planes`: the range's first row of each of
+// the ten op planes (kind, seq, client, ref_seq, min_seq, a, b, tstart,
+// tlen, pvals).  narrow = 0: int32 planes, tstart
+// the arena offset doc_base[d] + chars before; narrow = 1: the narrow
+// upload encoding (mergetree_kernel.narrow_ops_for_upload): kind and client
+// int8, the rest int16, an insert's tstart less doc_base[d], any other
+// row's 0 — the caller has checked every value fits (oppack_scan).
+// key_offs / val_offs (D + 1 each) delimit each document's maps in
+// key_map / val_map; an empty map passes the stream's ids through.  The documents' text goes to arena_out in
+// order.  Returns 0, or -1 - d for the first document that is malformed or
+// holds more than T ops.
+int32_t oppack_fill(int32_t D, const uint8_t* const* blobs,
+                    const int64_t* lens, int32_t T, int32_t K,
+                    int32_t narrow, const int32_t* doc_base,
+                    void* const* planes,
+                    const int32_t* key_map, const int64_t* key_offs,
+                    const int32_t* val_map, const int64_t* val_offs,
+                    uint8_t* arena_out, int64_t arena_capacity) {
+    int64_t used = 0;
+    for (int32_t d = 0; d < D; ++d) {
+        const int64_t row = static_cast<int64_t>(d) * T;
+        const int32_t n_keys =
+            static_cast<int32_t>(key_offs[d + 1] - key_offs[d]);
+        const int32_t n_vals =
+            static_cast<int32_t>(val_offs[d + 1] - val_offs[d]);
+        const int32_t* km = n_keys > 0 ? key_map + key_offs[d] : nullptr;
+        const int32_t* vm = n_vals > 0 ? val_map + val_offs[d] : nullptr;
+        int32_t rc;
+        if (narrow) {
+            auto p8 = [&](int i) {
+                return static_cast<int8_t*>(planes[i]) + row;
+            };
+            auto p16 = [&](int i) {
+                return static_cast<int16_t*>(planes[i]) + row;
+            };
+            rc = fill_doc<int8_t, int16_t>(
+                blobs[d], lens[d], T, K, doc_base[d], true, p8(0), p16(1),
+                p8(2), p16(3), p16(4), p16(5), p16(6), p16(7), p16(8),
+                static_cast<int16_t*>(planes[9]) + row * K, km, n_keys, vm,
+                n_vals, arena_out, arena_capacity, &used);
+        } else {
+            auto p32 = [&](int i) {
+                return static_cast<int32_t*>(planes[i]) + row;
+            };
+            rc = fill_doc<int32_t, int32_t>(
+                blobs[d], lens[d], T, K, doc_base[d], false, p32(0), p32(1),
+                p32(2), p32(3), p32(4), p32(5), p32(6), p32(7), p32(8),
+                static_cast<int32_t*>(planes[9]) + row * K, km, n_keys, vm,
+                n_vals, arena_out, arena_capacity, &used);
+        }
+        if (rc < 0) return -1 - d;
+    }
+    return 0;
 }
 
 // Final device state → canonical summary-body JSON for every document of a

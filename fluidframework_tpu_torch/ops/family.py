@@ -50,7 +50,8 @@ class KernelFamily:
         an object whose steps ``intern()``, ``begin(j)``, ``size()``,
         ``finish(j)`` and ``join()`` (→ ``pack``'s result) the pipeline
         runs, ``begin`` and ``finish`` of different ranges at once
-        (``tree_native.RecordPack``).  None: every chunk packs whole.
+        (``native_pack.RecordPack``, ``tree_native.RecordPack``).  None:
+        every chunk packs whole.
 
     upload / dispatch
       - ``order(batch, schedule)`` → schedule-order index list;

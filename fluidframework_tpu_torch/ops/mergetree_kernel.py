@@ -991,6 +991,28 @@ def fill_sequence_op_rows(op, d: int, t: int, msgs, pack, arena,
     return t
 
 
+def _record_pack(docs: Sequence[MergeTreeDocInput], k: int, narrow: bool):
+    """A ``native_pack.RecordPack`` of ``docs`` in ``k`` ranges, no step
+    run yet, where every document carries a binary stream and no base and
+    the native library loads; else None."""
+    from .native_pack import RecordPack, load_library
+
+    if not docs or not all(d.binary_ops is not None and not d.base_records
+                           for d in docs):
+        return None
+    lib = load_library()
+    return None if lib is None else RecordPack(lib, docs, k, narrow)
+
+
+def slice_mergetree_pack(docs: Sequence[MergeTreeDocInput], k: int):
+    """``pack_mergetree_batch``'s record route for ``docs`` cut into ``k``
+    document ranges (the merge-tree family's ``slice_pack``), or None where
+    that route does not take them: the same state and meta bit for bit,
+    and the ops already in the upload encoding where
+    ``narrow_ops_for_upload`` would narrow them."""
+    return _record_pack(docs, k, narrow=True)
+
+
 def pack_mergetree_batch(docs: Sequence[MergeTreeDocInput]):
     """Pack documents into uniform-shape numpy arrays + host metadata.
 
@@ -998,8 +1020,17 @@ def pack_mergetree_batch(docs: Sequence[MergeTreeDocInput]):
     needed to rebuild canonical summaries from the final device state.
     The arrays and meta equal the reference's ``pack_mergetree_batch``;
     the i16/i8/row-elision facts pick the transfer layouts
-    (``_export_flags``, ``narrow_ops_for_upload``).
+    (``_export_flags``, ``narrow_ops_for_upload``).  A batch whose
+    documents all carry binary streams and no base packs through the
+    steps of ``native_pack.RecordPack`` over one range, on this thread.
     """
+    pack = _record_pack(docs, 1, narrow=False)
+    if pack is not None:
+        pack.intern()
+        pack.begin(0)
+        pack.size()
+        pack.finish(0)
+        return pack.join()
     prop_keys = Interner()
     values = Interner()
     arena = TextArena()
@@ -1084,11 +1115,8 @@ def pack_mergetree_batch(docs: Sequence[MergeTreeDocInput]):
     base_has_ob = False
     base_has_ro = False
     base_max_tlen = 0
-    # One raw-pointer packer per chunk: base addresses captured once, no
-    # per-doc ndarray marshalling (see native_pack.ChunkPacker).
-    from .native_pack import chunk_packer, pack_doc_row
+    from .native_pack import pack_doc_row
 
-    packer = chunk_packer(op) if binary_counts else None
     for d, doc in enumerate(docs):
         pack = doc_packs[d]
         doc_base[d] = len(arena)
@@ -1148,18 +1176,9 @@ def pack_mergetree_batch(docs: Sequence[MergeTreeDocInput]):
                     np.int32,
                 )
             doc_bytes = bytearray()
-            if packer is not None:
-                packer.pack(doc.binary_ops, d, len(arena), doc_bytes,
-                            text_bytes=binary_counts[d][1],
-                            key_map=key_map, val_map=val_map)
-            else:
-                row = {key: op[key][d]
-                       for key in ("kind", "seq", "client", "ref_seq",
-                                   "min_seq", "a", "b", "tstart", "tlen",
-                                   "pvals")}
-                pack_doc_row(doc.binary_ops, row, K, len(arena), doc_bytes,
-                             text_bytes=binary_counts[d][1],
-                             key_map=key_map, val_map=val_map)
+            pack_doc_row(doc.binary_ops, op, d, len(arena), doc_bytes,
+                         binary_counts[d][1], key_map=key_map,
+                         val_map=val_map)
             arena.append(doc_bytes.decode("utf-8"))
             continue
 

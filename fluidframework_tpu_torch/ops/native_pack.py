@@ -208,16 +208,18 @@ def load_library() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64),
     ]
-    lib.oppack_pack.restype = ctypes.c_int32
-    lib.oppack_pack.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
-    ] + [np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")] * 10 + [
-        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_void_p, ctypes.c_int32,   # key_map, n_keys
-        ctypes.c_void_p, ctypes.c_int32,   # val_map, n_vals
+    lib.oppack_scan.restype = ctypes.c_int32
+    lib.oppack_scan.argtypes = [
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.oppack_fill.restype = ctypes.c_int32
+    lib.oppack_fill.argtypes = [
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,   # D, blobs, lens
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # T, K, narrow
+        ctypes.c_void_p, ctypes.c_void_p,                   # doc_base, planes
+        ctypes.c_void_p, ctypes.c_void_p,                   # key_map, offs
+        ctypes.c_void_p, ctypes.c_void_p,                   # val_map, offs
+        ctypes.c_void_p, ctypes.c_int64,                    # arena, capacity
     ]
     lib.oppack_extract.restype = ctypes.c_int64
     lib.oppack_extract.argtypes = [
@@ -299,133 +301,52 @@ def binary_has_obliterate(blob: bytes) -> bool:
     return False
 
 
-#: the nine [D, T] op fields in oppack_pack's argument order
-_ROW_FIELDS = ("kind", "seq", "client", "ref_seq", "min_seq", "a", "b",
-               "tstart", "tlen")
-
-
-def _raw_pack(lib):
-    """A second prototype for the SAME ``oppack_pack`` symbol taking raw
-    ``c_void_p`` row pointers.  The ndpointer prototype re-marshals every
-    ndarray argument on every call (~40% of chunk pack time at 11 arrays
-    × 1024 docs — profiled round 5); the batch packer precomputes each
-    field's base address once per chunk and passes ``base + d*row_bytes``
-    as plain ints instead."""
-    fn = getattr(lib, "_oppack_pack_raw", None)
-    if fn is None:
-        proto = ctypes.CFUNCTYPE(
-            ctypes.c_int32,
-            ctypes.c_char_p, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
-            *([ctypes.c_void_p] * 10),
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_void_p, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_int32,
-        )
-        fn = proto(("oppack_pack", lib))
-        lib._oppack_pack_raw = fn
-    return fn
-
-
-class ChunkPacker:
-    """Per-chunk fast row packer: base addresses captured once from the
-    batch op arrays (which must outlive the packer), one shared text
-    scratch reused across docs."""
-
-    def __init__(self, op: Dict[str, np.ndarray], lib):
-        self._fn = _raw_pack(lib)
-        self._T = int(op["kind"].shape[1])
-        self._K = int(op["pvals"].shape[2])
-        self._bases = [op[f].ctypes.data for f in _ROW_FIELDS]
-        self._pvals_base = op["pvals"].ctypes.data
-        self._keepalive = op  # pin the arrays behind the raw pointers
-        self._scratch = np.zeros(1, np.uint8)
-
-    def pack(self, blob: bytes, d: int, arena_base_chars: int,
-             arena: bytearray, text_bytes: int,
-             key_map: Optional[np.ndarray] = None,
-             val_map: Optional[np.ndarray] = None) -> int:
-        T, K = self._T, self._K
-        if self._scratch.nbytes < max(text_bytes, 1):
-            self._scratch = np.zeros(max(text_bytes, 1), np.uint8)
-        arena_bytes = ctypes.c_int64()
-        arena_chars = ctypes.c_int64()
-        row_off = d * T * 4
-        ptrs = [b + row_off for b in self._bases]
-        ptrs.append(self._pvals_base + d * T * K * 4)
-        km = None if key_map is None else \
-            np.ascontiguousarray(key_map, np.int32)
-        vm = None if val_map is None else \
-            np.ascontiguousarray(val_map, np.int32)
-        packed = self._fn(
-            blob, len(blob), T, K, arena_base_chars, *ptrs,
-            self._scratch.ctypes.data, self._scratch.nbytes,
-            ctypes.byref(arena_bytes), ctypes.byref(arena_chars),
-            None if km is None else km.ctypes.data,
-            0 if km is None else len(km),
-            None if vm is None else vm.ctypes.data,
-            0 if vm is None else len(vm),
-        )
-        if packed < 0:
-            raise ValueError("malformed binary op stream")
-        arena += self._scratch[:arena_bytes.value].tobytes()
-        return packed
-
-
-def chunk_packer(op: Dict[str, np.ndarray]) -> Optional["ChunkPacker"]:
-    """A ChunkPacker when liboppack is available, else None (callers fall
-    back to the per-doc ``pack_doc_row`` pure-Python path)."""
-    lib = load_library()
-    return None if lib is None else ChunkPacker(op, lib)
+#: the ten op planes in ``oppack_fill``'s order
+_OP_PLANES = ("kind", "seq", "client", "ref_seq", "min_seq", "a", "b",
+              "tstart", "tlen", "pvals")
 
 
 def pack_doc_row(
     blob: bytes,
-    row: Dict[str, np.ndarray],
-    K: int,
+    op: Dict[str, np.ndarray],
+    d: int,
     arena_base_chars: int,
     arena: bytearray,
-    text_bytes: Optional[int] = None,
+    text_bytes: int,
     key_map: Optional[np.ndarray] = None,
     val_map: Optional[np.ndarray] = None,
-) -> int:
-    """Fill one document's row of the batch arrays from its binary stream;
-    appends text to ``arena`` (utf-8 bytes) and returns ops packed.
-
-    ``row`` maps field name → the 1-D row views (``op['kind'][d]`` etc.,
-    C-contiguous); ``pvals`` is the (T, K) row.  ``key_map``/``val_map``
-    (int32 arrays) translate encoder-local property key / value ids into
-    the batch-global intern spaces."""
-    T = row["kind"].shape[0]
+) -> None:
+    """Fill document ``d``'s rows of a batch's int32 op planes ``op``
+    (field name → ``[D, T]``, ``pvals`` ``[D, T, K]``) from its binary
+    stream, and append its text (utf-8 bytes, ``text_bytes`` of them) to
+    ``arena``: ``oppack_fill`` over the one document, or the pure-Python
+    packer without the library.  ``key_map`` / ``val_map`` (int32 arrays)
+    translate encoder-local property key / value ids into the
+    batch-global intern spaces."""
     lib = load_library()
-    if lib is not None:
-        if text_bytes is None:
-            _n, text_bytes, _tc = count_stream(blob)
-        scratch = np.zeros(max(text_bytes, 1), np.uint8)
-        arena_bytes = ctypes.c_int64()
-        arena_chars = ctypes.c_int64()
-        km = None if key_map is None else \
-            np.ascontiguousarray(key_map, np.int32)
-        vm = None if val_map is None else \
-            np.ascontiguousarray(val_map, np.int32)
-        packed = lib.oppack_pack(
-            blob, len(blob), T, K, arena_base_chars,
-            row["kind"], row["seq"], row["client"], row["ref_seq"],
-            row["min_seq"], row["a"], row["b"], row["tstart"], row["tlen"],
-            row["pvals"].reshape(-1),
-            scratch, len(scratch),
-            ctypes.byref(arena_bytes), ctypes.byref(arena_chars),
-            None if km is None else km.ctypes.data,
-            0 if km is None else len(km),
-            None if vm is None else vm.ctypes.data,
-            0 if vm is None else len(vm),
-        )
-        if packed < 0:
-            raise ValueError("malformed binary op stream")
-        arena += scratch[:arena_bytes.value].tobytes()
-        return packed
-    return _pack_py(blob, row, K, arena_base_chars, arena, key_map, val_map)
+    if lib is None:
+        row = {f: op[f][d] for f in _OP_PLANES}
+        _pack_py(blob, row, int(op["pvals"].shape[2]), arena_base_chars,
+                 arena, key_map, val_map)
+        return
+    T, K = (int(n) for n in op["pvals"].shape[1:])
+    # Every array behind a pointer below is held by a name for the call.
+    maps = [np.zeros(0, np.int32) if m is None
+            else np.ascontiguousarray(m, np.int32) for m in (key_map, val_map)]
+    offs = [np.asarray([0, len(m)], np.int64) for m in maps]
+    blobs = (ctypes.c_char_p * 1)(blob)
+    lens = np.asarray([len(blob)], np.int64)
+    base = np.asarray([arena_base_chars], np.int32)
+    planes = (ctypes.c_void_p * len(_OP_PLANES))(
+        *[op[f][d:].ctypes.data for f in _OP_PLANES])
+    text = np.empty(max(text_bytes, 1), np.uint8)
+    rc = lib.oppack_fill(1, blobs, lens.ctypes.data, T, K, 0,
+                         base.ctypes.data, planes, maps[0].ctypes.data,
+                         offs[0].ctypes.data, maps[1].ctypes.data,
+                         offs[1].ctypes.data, text.ctypes.data, text_bytes)
+    if rc != 0:
+        raise ValueError("malformed binary op stream")
+    arena += text[:text_bytes].tobytes()
 
 
 def _pack_py(blob: bytes, row: Dict[str, np.ndarray], K: int,
@@ -465,6 +386,245 @@ def _pack_py(blob: bytes, row: Dict[str, np.ndarray], K: int,
             row["tlen"][t] = 0
         t += 1
     return t
+
+
+# -- the record pack of a batch, by document ranges ----------------------------
+
+
+#: ``oppack_scan``'s facts a document (``csrc/oppack.cpp`` ``ScanFact``):
+#: ops, text bytes and chars; the least and greatest (from 0) kind, seq,
+#: client, ref_seq, min_seq, a, b; the longest text; the furthest insert
+#: text offset; the least and greatest property value id; the flags
+(_F_OPS, _F_BYTES, _F_CHARS, _F_KIND, _F_SEQ, _F_CLIENT, _F_REF, _F_MSN,
+ _F_A, _F_B) = (0, 1, 2, 3, 5, 7, 9, 11, 13, 15)
+_F_TLEN_HI, _F_INS_AT_HI, _F_VAL, _F_FLAGS, _N_FACTS = 17, 18, 19, 21, 22
+(_HAS_OBLITERATE, _NOT_SEQUENTIAL, _EMPTY_INSERT, _OTHER_TEXT_PAST0,
+ _OTHER_TEXT_AT0) = (1, 2, 4, 8, 16)
+#: the narrow upload encoding's bound of each op field's facts
+_NARROW_BOUNDS = {_F_KIND: np.int8, _F_CLIENT: np.int8, _F_SEQ: np.int16,
+                  _F_REF: np.int16, _F_MSN: np.int16, _F_A: np.int16,
+                  _F_B: np.int16}
+
+
+class RecordPack:
+    """``pack_mergetree_batch`` of a batch whose documents all carry
+    binary streams and no base, cut into ``k`` document ranges and run a
+    step at a time, so that the ranges' steps can run on several threads
+    (``oppack_scan`` and ``oppack_fill`` release the interpreter lock):
+
+    1. ``intern()``: the batch-global property-key and value tables, in
+       first-appearance order, each document's maps into them (one flat
+       table each), and its client table;
+    2. ``begin(j)``: range ``j``'s sizes and value facts (``oppack_scan``);
+    3. ``size()``: the buckets ``T``, ``S``, ``K``, each document's
+       ``doc_base`` (chars), the chunk-wide facts, and every plane
+       allocated once, unfilled;
+    4. ``finish(j)``: range ``j``'s rows of every plane, defaults included
+       (``oppack_fill`` writes the op rows), and its documents' text;
+    5. ``join()``: ``pack_mergetree_batch``'s ``(state, ops, meta)``.
+
+    With ``narrow`` the op rows are written in the upload encoding
+    wherever the chunk-wide facts allow it, and ``join()``'s ops equal
+    ``narrow_ops_for_upload`` of the whole pack's (which passes them
+    through); else, and always without ``narrow``, they are the whole
+    pack's int32 rows.  Steps 2 and 4 of different ranges may run at once;
+    every step 2 ends before step 3, and every step 4 before step 5.  A
+    malformed stream raises what the whole pack raises.  ``close()`` drops
+    what the steps hold."""
+
+    def __init__(self, lib, docs, k: int, narrow: bool) -> None:
+        self.lib, self.docs, self.want_narrow = lib, docs, narrow
+        D = len(docs)
+        self.cuts = [D * j // k for j in range(k + 1)]
+        self.blobs: List[Optional[ctypes.Array]] = [None] * k
+        self.scan_rcs = [0] * k
+        self.errors: List[Optional[Exception]] = [None] * k
+        self.texts: List[List[str]] = [[] for _ in range(k)]
+
+    def intern(self) -> None:
+        from .interning import Interner
+        from .mergetree_kernel import _DocPack, known_oracle_fallback
+
+        docs = self.docs
+        D = len(docs)
+        self.prop_keys, self.values = Interner(), Interner()
+        key_id, value_id = self.prop_keys.intern, self.values.intern
+        key_map: List[int] = []
+        val_map: List[int] = []
+        self.key_offs = np.zeros(D + 1, np.int64)
+        self.val_offs = np.zeros(D + 1, np.int64)
+        self.doc_packs = []
+        for d, doc in enumerate(docs):
+            if doc.binary_prop_keys:
+                key_map.extend(map(key_id, doc.binary_prop_keys))
+            if doc.binary_values:
+                val_map.extend(map(value_id, doc.binary_values))
+            self.key_offs[d + 1] = len(key_map)
+            self.val_offs[d + 1] = len(val_map)
+            pack = _DocPack()
+            for client in (doc.binary_clients or []):
+                pack.client_idx(client)
+            pack.needs_fallback = bool(known_oracle_fallback(doc))
+            self.doc_packs.append(pack)
+        self.key_map = np.asarray(key_map, np.int32)
+        self.val_map = np.asarray(val_map, np.int32)
+        self.lens = np.fromiter((len(doc.binary_ops) for doc in docs),
+                                np.int64, D)
+        self.facts = np.empty((D, _N_FACTS), np.int64)
+
+    def begin(self, j: int) -> None:
+        lo, hi = self.cuts[j], self.cuts[j + 1]
+        self.blobs[j] = (ctypes.c_char_p * (hi - lo))(
+            *[doc.binary_ops for doc in self.docs[lo:hi]])
+        self.scan_rcs[j] = self.lib.oppack_scan(
+            hi - lo, self.blobs[j], self.lens[lo:].ctypes.data,
+            self.facts[lo:].ctypes.data)
+
+    def size(self) -> None:
+        from .interning import next_bucket, next_bucket_fine
+        from .mergetree_kernel import (_UPLOAD_NARROW_DTYPES, I8_LIMIT,
+                                       I16_LIMIT, MTOps, MTState)
+
+        if any(rc != 0 for rc in self.scan_rcs):
+            raise ValueError("malformed binary op stream")
+        docs, f = self.docs, self.facts
+        D = len(docs)
+        n_ops = f[:, _F_OPS]
+        self.T = T = next_bucket_fine(int(n_ops.max()), floor=16)
+        self.S = S = next_bucket_fine(max(2 * int(n_ops.max()), 1), floor=32)
+        self.K = K = next_bucket(max(len(self.prop_keys), 1), floor=1)
+        chars = f[:, _F_CHARS]
+        self.doc_base = np.zeros(D, np.int32)
+        np.cumsum(chars[:-1], out=self.doc_base[1:])
+        self.byte_offs = np.zeros(D + 1, np.int64)
+        np.cumsum(f[:, _F_BYTES], out=self.byte_offs[1:])
+        flags = np.bitwise_or.reduce(f[:, _F_FLAGS])
+        # The whole pack's facts, from the documents' maxima and flags.
+        max_seq = max(int(f[:, _F_SEQ + 1].max()),
+                      max(doc.final_seq for doc in docs),
+                      max(doc.base_seq for doc in docs))
+        max_clients = max(len(p.clients) for p in self.doc_packs)
+        n_values = len(self.values)
+        self.i16_ok = (max_seq < I16_LIMIT
+                       and int(chars.max()) < I16_LIMIT
+                       and S < I16_LIMIT
+                       and n_values < I16_LIMIT
+                       and max_clients < I16_LIMIT)
+        self.i8_ok = (self.i16_ok
+                      and max_seq < I8_LIMIT
+                      and int(f[:, _F_TLEN_HI].max()) < I8_LIMIT
+                      and n_values < I8_LIMIT
+                      and max_clients < I8_LIMIT)
+        self.sequential = not flags & _NOT_SEQUENTIAL
+        self.has_ob = bool(flags & _HAS_OBLITERATE)
+        self.narrow = self.want_narrow and self.i16_ok \
+            and self._fits_narrow(flags)
+        st = {name: np.empty((D, S), np.int32)
+              for name in MTState._fields[:12]}
+        st["props"] = np.empty((D, S, K), np.int32)
+        st["n"] = np.zeros((D,), np.int32)
+        st["overflow"] = np.zeros((D,), np.bool_)
+        self.st = st
+        self.op = {name: np.empty(
+            (D, T, K) if name == "pvals" else (D, T),
+            _UPLOAD_NARROW_DTYPES[name] if self.narrow else np.int32)
+            for name in MTOps._fields}
+        self.planes = [self.op[name] for name in MTOps._fields]
+        self.arena = np.empty(max(int(self.byte_offs[-1]), 1), np.uint8)
+
+    def _fits_narrow(self, flags: int) -> bool:
+        """Whether ``narrow_ops_for_upload`` narrows this chunk (its
+        ``i16_ok`` holding): every non-insert row's ``tstart`` 0 and every
+        field, ``tstart`` rebased, inside its narrow type."""
+        f = self.facts
+        if flags & _OTHER_TEXT_PAST0:
+            return False
+        if flags & _OTHER_TEXT_AT0 and bool(
+                (self.doc_base[(f[:, _F_FLAGS] & _OTHER_TEXT_AT0) != 0]
+                 != 0).any()):
+            return False
+        for col, dt in _NARROW_BOUNDS.items():
+            info = np.iinfo(dt)
+            if int(f[:, col].min()) < info.min \
+                    or int(f[:, col + 1].max()) > info.max:
+                return False
+        i16 = np.iinfo(np.int16)
+        empty = (f[:, _F_FLAGS] & _EMPTY_INSERT) != 0
+        rebased_lo = -int(self.doc_base[empty].max(initial=0))
+        unmapped = self.val_offs[1:] == self.val_offs[:-1]
+        return (rebased_lo >= i16.min
+                and int(f[:, _F_INS_AT_HI].max()) <= i16.max
+                and int(f[:, _F_TLEN_HI].max()) <= i16.max
+                and int(f[:, _F_VAL].min()) >= i16.min
+                and int(f[unmapped, _F_VAL + 1].max(initial=0)) <= i16.max)
+
+    def finish(self, j: int) -> None:
+        from .mergetree_kernel import NOT_REMOVED, PROP_ABSENT
+
+        lo, hi = self.cuts[j], self.cuts[j + 1]
+        st = self.st
+        for name in ("tstart", "tlen", "ins_seq"):
+            st[name][lo:hi] = 0
+        for name in ("ins_client", "rem_client", "rem2_client",
+                     "ob1_client", "ob2_client"):
+            st[name][lo:hi] = -1
+        for name in ("rem_seq", "rem2_seq", "ob1_seq", "ob2_seq"):
+            st[name][lo:hi] = NOT_REMOVED
+        st["props"][lo:hi] = PROP_ABSENT
+        planes = (ctypes.c_void_p * len(self.planes))(
+            *[a[lo:].ctypes.data for a in self.planes])
+        b0 = int(self.byte_offs[lo])
+        rc = self.lib.oppack_fill(
+            hi - lo, self.blobs[j], self.lens[lo:].ctypes.data, self.T,
+            self.K, int(self.narrow), self.doc_base[lo:].ctypes.data, planes,
+            self.key_map.ctypes.data, self.key_offs[lo:].ctypes.data,
+            self.val_map.ctypes.data, self.val_offs[lo:].ctypes.data,
+            self.arena[b0:].ctypes.data, int(self.byte_offs[hi]) - b0)
+        # Each document's text decodes on its own, as the whole pack
+        # decodes it; the first failure of the range is join's to raise.
+        filled = hi - lo if rc >= 0 else -1 - rc
+        text = memoryview(self.arena)
+        offs = self.byte_offs.tolist()
+        try:
+            self.texts[j] = [str(text[offs[d]:offs[d + 1]], "utf-8")
+                             for d in range(lo, lo + filled)]
+        except UnicodeDecodeError as err:
+            self.errors[j] = err
+        else:
+            if rc < 0:
+                self.errors[j] = ValueError("malformed binary op stream")
+
+    def join(self):
+        from .interning import TextArena
+        from .mergetree_kernel import MTOps, MTState
+
+        for err in self.errors:
+            if err is not None:
+                raise err
+        arena = TextArena()
+        for texts in self.texts:
+            for text in texts:
+                arena.append(text)
+        meta = {
+            "doc_packs": self.doc_packs,
+            "prop_keys": list(self.prop_keys.values),
+            "values": self.values,
+            "arena": arena,
+            "docs": self.docs,
+            "doc_base": self.doc_base,
+            "_S": self.S,
+            "i16_ok": self.i16_ok,
+            "i8_ok": self.i8_ok,
+            "props_K": self.K,
+            "ob_rows": self.has_ob,
+            "ov_rows": not self.sequential,
+            "has_props": len(self.prop_keys) > 0,
+            "sequential": self.sequential,
+        }
+        return MTState(**self.st), MTOps(**self.op), meta
+
+    def close(self) -> None:
+        self.blobs = [None] * len(self.blobs)
 
 
 # -- native summary-body extraction -------------------------------------------

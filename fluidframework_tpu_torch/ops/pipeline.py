@@ -14,7 +14,8 @@ Shape (as the reference's):
   document slices that run as tasks of their own (once every chunk of
   the call is packed, the pack pool's idle workers take slices too); a
   chunk whose family can pack it by document ranges (``slice_pack``: the
-  tree's native record pack) is cut into ranges on both pools' workers,
+  native record packs of string streams, tree and matrix records) is cut
+  into ranges on both pools' workers,
   driven from a third pool whose threads intern and join; ALL
   device interaction — upload, dispatch, starting the d2h copy, the
   waits — stays on the calling thread (the reference's
@@ -96,6 +97,7 @@ from .mergetree_kernel import (
     pack_mergetree_batch,
     replay_export,
     resolve_device,
+    slice_mergetree_pack,
     split_export_digest,
     summaries_from_export,
 )
@@ -1319,6 +1321,7 @@ MERGETREE_FAMILY = KernelFamily(
     extract=lambda meta, arr, st: summaries_from_export(meta, arr,
                                                         stats=st),
     per_doc_meta=("doc_base",),
+    slice_pack=slice_mergetree_pack,
     make_pad=lambda: MergeTreeDocInput(doc_id="\x00pad", ops=[]),
     pad_token=_mt_pad_token,
     dispatch_sharded=_mt_dispatch_sharded,

@@ -15,12 +15,15 @@ from fluidframework_tpu.ops import mergetree_kernel as ref_mt
 from fluidframework_tpu_torch.ops import mergetree_kernel as mt
 from fluidframework_tpu_torch.ops import native_pack
 from fluidframework_tpu_torch.testing import workload
-from tests.torch_corpora import (FOLD_CORPORA, hard_docs, interval_docs,
-                                 port_docs, warm_doc)
+from tests.torch_corpora import (FOLD_CORPORA, bench_docs, hard_docs,
+                                 interval_docs, port_docs, warm_doc)
 
 PACK_CORPORA = dict(FOLD_CORPORA)
 PACK_CORPORA["intervals"] = interval_docs
 PACK_CORPORA["warm"] = lambda: [warm_doc()]
+# binary streams beside message documents: the per-document native fill
+PACK_CORPORA["mixed"] = lambda: [warm_doc()] + bench_docs(5, 40) \
+    + hard_docs()
 
 _META_FACTS = ("_S", "props_K", "i16_ok", "i8_ok", "ob_rows", "ov_rows",
                "has_props", "sequential", "prop_keys")
@@ -57,18 +60,16 @@ def test_pack_matches_jax_package(corpus):
             [m.seq for m in pp.interval_ops]
 
 
-def test_pure_python_pack_matches_native():
+def test_pure_python_pack_matches_native(monkeypatch):
     """The port keeps the reference's pure-Python pack path (no g++):
-    arrays equal to the C++ packer's."""
+    arrays equal to the C++ packer's (the record route, which every
+    binary batch with no base takes)."""
     docs = [workload.synth_doc(i, 32) for i in range(12)]
     n_state, n_ops, _ = mt.pack_mergetree_batch(docs)
-    saved = native_pack.chunk_packer
-    native_pack.chunk_packer = lambda op: None
-    try:
-        docs = [workload.synth_doc(i, 32) for i in range(12)]
-        p_state, p_ops, _ = mt.pack_mergetree_batch(docs)
-    finally:
-        native_pack.chunk_packer = saved
+    monkeypatch.setattr(native_pack, "load_library", lambda: None)
+    docs = [workload.synth_doc(i, 32) for i in range(12)]
+    assert mt.slice_mergetree_pack(docs, 2) is None
+    p_state, p_ops, _ = mt.pack_mergetree_batch(docs)
     for f in n_ops._fields:
         np.testing.assert_array_equal(getattr(n_ops, f), getattr(p_ops, f))
     for f in n_state._fields:

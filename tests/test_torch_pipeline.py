@@ -303,8 +303,10 @@ def test_extract_tasks_follow_the_chunk_and_the_free_workers(
     assert [arenas[id(meta["arena"])] for _s, _o, meta, _t in packed] == \
         tasks
     assert stage["extract_tasks"] == sum(tasks)
-    # the merge-tree family packs every chunk whole: one task a chunk
-    assert stage["pack_tasks"] == len(packed)
+    # binary chunks of two slices' documents or more pack in ranges, one
+    # task each, as many as both pools have workers
+    assert stage["pack_tasks"] == sum(
+        max(1, min(7, len(meta["docs"]) // 64)) for _s, _o, meta, _t in packed)
     assert [s.digest() for s in got] == \
         [s.digest() for s in mt.replay_mergetree_batch(docs, device="cpu")]
 
